@@ -2,17 +2,14 @@
 
 The reference supports N up to 65,535 through 8-column output slabs
 (src/sextans-host.cpp:223; src/sextans.cpp:52-60) and its throughput is
-N-independent by construction. This sweep documents the TPU engines across
-output widths — the skinny-N story (MXU C-transposed kernel at N<=32), the
-MXU crossover, and the restream behavior at N>512 — on the reference's
-canonical matrix, the densest FEM stand-in, and the adversarial power-law
-class (VERDICT r2 item 7).
+N-independent by construction. This sweep measures the engines across
+output widths on the reference's canonical matrix, the densest FEM
+stand-in, and the adversarial power-law class, on the GPU only.
 
-Rows use the same protocol/schema as the canonical suite (run_one:
-candidate race, canary gating, f64 oracle + ulp column), so the output
-merges into the canonical results file.
+Rows use the same protocol/schema as the suite (run_one: candidate race,
+f64 oracle + ulp column).
 
-Usage: python benchmarks/nsweep.py [--out benchmarks/results_r3_nsweep.json]
+Usage: python benchmarks/nsweep.py [--out nsweep.json]
     [--matrices nasa4704 pdb1HYS_like webgraph_like] [--ns 8 16 ... 1024]
 """
 import argparse
@@ -82,34 +79,25 @@ def main(argv=None):
     import jax
 
     from benchmarks.matrices import suite as suite_gens
-    from benchmarks.suite import (
-        HEALTHY_CANARY_MS,
-        _gen_cached,
-        make_fast_canary,
-        run_one,
-    )
+    from benchmarks.suite import _gen_cached, run_one
     from sextans_tpu.format.pack_cache import PackCache
     from sextans_tpu.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
+    dev = jax.devices()[0]
     log(f"devices: {jax.devices()}")
+    if dev.platform != "gpu":
+        log(f"no GPU (platform {dev.platform!r}): the sweep measures on the "
+            "GPU only")
+        return 2
     gens = suite_gens("full")
     session = {
         "timestamp": datetime.now(timezone.utc).isoformat(),
-        "device": str(jax.devices()[0]),
-        "platform": jax.devices()[0].platform,
+        "platform": dev.platform,
+        "device_kind": dev.device_kind,
+        "device_count": len(jax.devices()),
         "sweep": "nsweep",
     }
-    canary = None
-    healthy_ms = HEALTHY_CANARY_MS
-    if jax.devices()[0].platform == "tpu":
-        raw = make_fast_canary()
-        samples = [raw() for _ in range(4)]
-        healthy_ms = round(max(HEALTHY_CANARY_MS, 1.6 * min(samples)), 3)
-        session["nasa_canary_ms"] = min(samples)
-        session["canary_healthy_ms"] = healthy_ms
-        log(f"canary baseline {min(samples)} ms; healthy {healthy_ms}")
-        canary = raw
 
     store = None
     if args.tuned_configs:
@@ -142,8 +130,7 @@ def main(argv=None):
                 break
             try:
                 rec = run_one(
-                    name, coo, n, "auto", True, store=store, canary=canary,
-                    canary_retries=3, healthy_ms=healthy_ms,
+                    name, coo, n, "auto", True, store=store,
                     pack_cache=pack_cache,
                 )
             except Exception as e:
@@ -157,10 +144,9 @@ def main(argv=None):
                     json.dumps({"session": session, "results": rows}, indent=1)
                 )
             if "RESOURCE_EXHAUSTED" in str(rec.get("error", "")):
-                # a device OOM poisons the client process for good
-                # (STATUS.md): every later row would be garbage — publish
-                # what exists and end the sweep
-                log("device OOM: client poisoned; ending the sweep")
+                # a device OOM can leave the client unusable: every later
+                # row would be garbage — publish what exists and end
+                log("device OOM: ending the sweep")
                 doc = {"session": session, "results": rows}
                 print(json.dumps(doc, indent=1))
                 if args.out:

@@ -1,4 +1,4 @@
-"""End-to-end demo: C = alpha*A*B + beta*C on TPU from a Matrix Market file.
+"""End-to-end demo: C = alpha*A*B + beta*C from a Matrix Market file.
 
 Usage:  python examples/demo.py [matrix.mtx]   (defaults to the reference's
 nasa4704 sample if the read-only mount is present)
@@ -50,8 +50,8 @@ def main():
     ref = sx.golden_spmm(sx.CSRMatrix.from_coo(a), b, 0.85, -2.06, c)
     print(sx.verify(ref, out))
 
-    # 5. the MXU dense-slab engine (flagship on TPU: 938 GFLOPS nasa4704
-    #    N=512 on v5e; the analytic autotuner picks the family per matrix)
+    # 5. the format the analytic autotuner picks for this matrix; the
+    #    dense-slab format when it wins the byte model
     from sextans_tpu.utils.autotune import choose_backend
 
     best = choose_backend(a, n=n)[0]

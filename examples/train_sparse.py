@@ -6,7 +6,7 @@ path (ops/autodiff.py): dvals = alpha * (G @ B^T) sampled at A's pattern.
 The reference accelerator has no training story; this is the capability a
 JAX-native design adds for free (SURVEY.md §7 "beyond-reference").
 
-Usage: python examples/train_sparse.py    (CPU or TPU; small shapes)
+Usage: python examples/train_sparse.py    (CPU or GPU; small shapes)
 """
 
 import sys
@@ -25,8 +25,7 @@ def main():
     rng = np.random.default_rng(0)
     m, k, n, nnz = 256, 192, 32, 2000
     a_true = sx.COOMatrix.random(m, k, nnz, seed=1)
-    cfg = sx.SpmmConfig(tile_m=64, window_k=64, block_k=8, group_blocks=16,
-                        tile_n=128)
+    cfg = sx.SpmmConfig(tile_m=64, window_k=64, block_k=8, group_blocks=16)
     # structure is fixed; values are the learned parameter
     op = sx.spmm_value_op(a_true, n, config=cfg)
 

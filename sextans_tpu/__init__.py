@@ -1,9 +1,9 @@
-"""sextans_tpu — TPU-native general-purpose SpMM: C = alpha * A @ B + beta * C.
+"""sextans_tpu — general-purpose SpMM in JAX: C = alpha * A @ B + beta * C.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the Sextans
-FPGA accelerator (FPGA'22, reference at /root/reference): arbitrary Matrix
-Market / SuiteSparse sparse A, dense float32 B and C, one compiled kernel
-serving any problem size at runtime.
+A from-scratch JAX framework, run on NVIDIA GPUs, with the capabilities of
+the Sextans FPGA accelerator (FPGA'22): arbitrary Matrix Market /
+SuiteSparse sparse A, dense float32 B and C, compiled engines serving any
+problem size at runtime (ops/engines.py picks the engine).
 
 Quick start::
 

@@ -8,9 +8,8 @@ every (matrix, config) candidate in every pass — so packs are memoized on
 disk keyed by (matrix identity, format, pack-relevant config fields).
 
 Only the config fields that change the packed bytes participate in the key:
-kernel-only knobs (``precise``, ``chunk_unroll``, ``n_acc``, ``tile_n``)
-vary freely over one cached pack. On load, the *caller's* full config is
-re-attached to the packed object so those kernel knobs take effect.
+the engine-only knob ``precise`` varies freely over one cached pack. On load, the *caller's* full config is re-attached to the packed
+object so those knobs take effect.
 
 The cache directory defaults to ``$TMPDIR/sextans_pack_cache`` and is
 overridable via ``SEXTANS_PACK_CACHE_DIR``. Small packs are ordinary
@@ -44,7 +43,7 @@ def pack_signature(
 ) -> str:
     """Canonical string of the fields that determine the packed bytes."""
     if fmt == "edge":
-        fields = (cfg.tile_m, cfg.window_k, cfg.edge_chunk, cfg.edge_lanes)
+        fields = (cfg.tile_m, cfg.window_k, cfg.edge_chunk)
     elif fmt == "mxu":
         fields = (cfg.tile_m, cfg.window_k, cfg.block_k, cfg.group_blocks)
     elif fmt == "vpu":

@@ -1,19 +1,15 @@
 """ELL gather pack pass: COO → fixed-slots-per-row gather format.
 
-Fourth packed format, feeding the HBM-gather engine (ops/spmm_ell_xla.py).
+Fourth packed format, feeding the gather engine (ops/spmm_ell_xla.py).
 
-Motivation (round 3): the edge-stream kernel's per-edge cost is bounded at
-~20 cycles by the dynamic-sublane extract from the VMEM B window
-(docs/DESIGN.md §"the scatter bound") — a compute-pipeline bound, not a
-bandwidth bound. For LOW-DEGREE scattered matrices (road networks ~3 nnz/row,
-web crawls ~3, economics ~6 — exactly the classes where block formats pay
-4-50x padding), the same product can instead be phrased as R dense
-row-gathers from B in HBM plus a slot-weighted reduction:
+For LOW-DEGREE scattered matrices (road networks ~3 nnz/row, web crawls ~3,
+economics ~6 — exactly the classes where block formats pay 4-50x padding),
+the product is phrased as R dense row-gathers from B plus a slot-weighted
+reduction:
 
     C[i, :] = sum_r  vals[i, r] * B[cols[i, r], :]        r < R
 
-which XLA executes as bulk gathers at HBM bandwidth — no per-edge VPU
-extract at all. The pack is the classic ELLPACK layout with hub-row
+which moves one B row per slot, with no per-block padding. The pack is the classic ELLPACK layout with hub-row
 splitting: rows with degree > R spill into appended *virtual rows* that the
 engine folds back with one small scatter-add, so a single power-law hub row
 cannot inflate the whole matrix's slot count (the same indivisible-row
@@ -95,13 +91,7 @@ class PackedSpMatrixELL:
                 [self.m, self.k, self.nnz, self.slots_per_row, self.m_base],
                 dtype=np.int64,
             ),
-            cfg=np.array(
-                [
-                    self.config.tile_m,
-                    -1 if self.config.tile_n is None else self.config.tile_n,
-                ],
-                dtype=np.int64,
-            ),
+            cfg=np.array([self.config.tile_m], dtype=np.int64),
             cols=self.cols,
             vals=self.vals,
             fold_rows=self.fold_rows,
@@ -138,7 +128,7 @@ class PackedSpMatrixELL:
         m, k, nnz, r, m_base = (int(x) for x in z["shape"])
         cf = [int(x) for x in z["cfg"]]
         cfg = SpmmConfig(
-            tile_m=cf[0], tile_n=None if cf[1] < 0 else cf[1], ell_r=r
+            tile_m=cf[0], ell_r=r
         )
         s = [int(x) for x in z["stats"]]
         stats = PackStats(

@@ -194,9 +194,7 @@ def _slots_ell(coo, config):
 
 def _slots_edge(coo, config):
     """Edge format: one slot per edge (pack_edge.py:222-287)."""
-    tm, wk, E, L = (
-        config.tile_m, config.window_k, config.edge_chunk, config.edge_lanes,
-    )
+    tm, wk, E = config.tile_m, config.window_k, config.edge_chunk
     nnz = coo.nnz
     rows = coo.rows.astype(np.int64)
     cols = coo.cols.astype(np.int64)
@@ -218,7 +216,7 @@ def _slots_edge(coo, config):
     run_first = np.flatnonzero(new_run)
     n_runs = run_first.size
     run_len = np.diff(np.append(run_first, nnz))
-    run_padlen = -(-run_len // L) * L
+    run_padlen = run_len
     run_job = job_of_edge[run_first]
 
     pad_cum = np.concatenate([[0], np.cumsum(run_padlen)])

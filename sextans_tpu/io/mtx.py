@@ -1,6 +1,6 @@
 """Matrix Market (``.mtx``) I/O.
 
-TPU-native re-implementation of the capabilities of the reference's vendored
+Re-implementation of the capabilities of the reference's vendored
 NIST ``mmio.h`` reader (reference: src/mmio.h:254,339,488) and the SuiteSparse
 loading semantics of ``load_S_matrix`` / ``read_suitsparse_matrix``
 (reference: src/sparse_helper.h:112-259):
@@ -22,7 +22,7 @@ loading semantics of ``load_S_matrix`` / ``read_suitsparse_matrix``
 
 Parsing is vectorized NumPy (single ``fromstring`` pass over the payload)
 rather than a per-line ``fscanf`` loop, since this front end runs on the host
-CPU feeding a TPU.
+CPU feeding the device.
 """
 
 from __future__ import annotations

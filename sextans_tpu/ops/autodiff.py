@@ -1,7 +1,7 @@
 """Differentiable SpMM: gradients through C = alpha * A @ B + beta * C.
 
 Beyond-reference capability that falls naturally out of a JAX-native design:
-the reference is a fixed-function accelerator (no training story), but a TPU
+the reference is a fixed-function accelerator (no training story), but a JAX
 SpMM framework slots into learned pipelines — graph networks and sparse
 attention need gradients w.r.t. *everything*:
 
@@ -15,7 +15,7 @@ attention need gradients w.r.t. *everything*:
 *structure* is static (packed once, steering arrays fixed) while A's
 *values* are a traced input — they are scattered into the packed buffer on
 device through the COO→slot map (format/slots.py), so the forward runs the
-same Pallas/XLA kernels as the inference path. ``spmm_op`` keeps the simple
+same engines as the inference path. ``spmm_op`` keeps the simple
 op(b, c) convenience with vals/alpha/beta closed over.
 """
 
@@ -86,8 +86,8 @@ def spmm_value_op(
     * ``vals`` — (nnz,) values of A in ``a``'s COO entry order (the
       structure — coordinates, tiling, steering — is baked at build time);
     * gradients flow to all five arguments (see module docstring);
-    * ``fmt`` selects the packed format / kernel family ("vpu", "mxu",
-      "edge") for both the forward product and the A^T backward product.
+    * ``fmt`` selects the packed format ("vpu", "mxu", "edge", "ell") for
+      both the forward product and the A^T backward product.
 
     The returned callable is jit-compatible and works under
     ``jax.grad`` / ``jax.vjp`` / ``jax.value_and_grad``.
@@ -112,20 +112,12 @@ def spmm_value_op(
     def _ab(vals, b):
         """A(vals) @ b — unscaled product through the packed kernel."""
         pv = _scatter(vals, slots, vshape)
-        zeros_c = jnp.zeros((m, n), jnp.float32)
-        return fwd_plan._jit(
-            pv, *fwd_plan._dev[1:], b, zeros_c,
-            jnp.float32(1.0), jnp.float32(0.0),
-        )
+        return fwd_plan._jit_noc((pv, *fwd_plan._dev[1:]), b, jnp.float32(1.0))
 
     def _atg(vals, g):
         """A(vals)^T @ g through the transpose pack."""
         pv = _scatter(vals, slots_t, vtshape)
-        zeros_k = jnp.zeros((k, n), jnp.float32)
-        return bwd_plan._jit(
-            pv, *bwd_plan._dev[1:], g, zeros_k,
-            jnp.float32(1.0), jnp.float32(0.0),
-        )
+        return bwd_plan._jit_noc((pv, *bwd_plan._dev[1:]), g, jnp.float32(1.0))
 
     @jax.custom_vjp
     def op(vals, b, c, alpha, beta):

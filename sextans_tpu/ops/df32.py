@@ -8,8 +8,8 @@ beta*C_in`` performs two product roundings and one sum rounding (~1.5 ulp
 worst case — exactly the 1.1-1.7e-6 band the round-4 canonical rows
 stranded in as ``precise-missed``).
 
-These helpers close that last gap with classic error-free transforms on
-the VPU (no FMA required):
+These helpers close that last gap with classic error-free transforms (no
+FMA required):
 
 * ``two_sum``  — Knuth's 6-op exact addition: ``a + b = s + e`` exactly.
 * ``two_prod`` — Dekker's split product: ``a * b = p + e`` exactly
@@ -17,9 +17,10 @@ the VPU (no FMA required):
 * ``compensated_epilogue`` — the fused ``alpha*(total - comp) + beta*cin``
   with every product and sum compensated and ONE final rounding.
 
-All are plain jnp elementwise expressions, usable inside Pallas kernel
-bodies and in XLA compositions alike. XLA does not reassociate float
-arithmetic by default, so the identities hold on TPU.
+All are plain jnp elementwise expressions. The engines' precise mode
+accumulates in float64 instead (ops/spmm_xla.acc_dtype); these transforms
+combine the parts of the hybrid plan's precise composition
+(ops/hybrid.py). XLA does not reassociate float arithmetic by default.
 
 The reference has no analog — its FP32 add pipeline accumulates in
 schedule order (src/sextans.cpp:462-570) and its host gate is the looser
@@ -58,17 +59,15 @@ def two_prod(a, b):
     |a| or |b| > ~2^115 of the f32 range (the split multiply) — far
     outside any SpMM operand regime.
 
-    PLATFORM SEMANTICS (measured, 2026-08): the XLA TPU backend and
-    Mosaic are strict — no mul+add contraction — so the EFT identities
-    hold exactly where the 1e-6 gate runs. The XLA CPU backend contracts
-    a caller's ``x + p`` into ``fma(a, b, x)`` (LLVM ffp-contract;
-    no debug flag disables it, and ``optimization_barrier`` neither
-    survives into the emitted LLVM nor lowers in Mosaic), which perturbs
-    ``two_sum``'s recovered residual by up to ~1 ulp of the running sum.
-    CPU/interpret tests therefore assert the ~1-2 ulp faithful band, not
-    exactness; the gate evidence is collected on TPU. Contraction INSIDE
-    ``e``'s expression is harmless either way: every partial product
-    there is exactly representable.
+    PLATFORM SEMANTICS: the transforms assume no mul+add contraction.
+    The XLA CPU backend contracts a caller's ``x + p`` into
+    ``fma(a, b, x)`` (LLVM ffp-contract; no debug flag disables it, and
+    ``optimization_barrier`` does not survive into the emitted LLVM),
+    which perturbs ``two_sum``'s recovered residual by up to ~1 ulp of the
+    running sum; whether the GPU backend contracts is not verified. Tests
+    therefore assert the ~1-2 ulp faithful band, not exactness.
+    Contraction INSIDE ``e``'s expression is harmless either way: every
+    partial product there is exactly representable.
     """
     p = a * b
     a_hi, a_lo = _split(a)
@@ -92,9 +91,9 @@ def acc_step(acc, comp, x, xerr=None):
     ``acc`` OVERSTATES the true sum. ``xerr`` is an exact residual to ADD
     (e.g. the two_prod error of the term being accumulated).
 
-    On the strict TPU backend the update is exact; on the contracting
-    XLA CPU backend a bare-product ``x`` may fuse into the two_sum add
-    (see two_prod's platform note) at ~1 ulp cost — accepted there.
+    Without contraction the update is exact; on the contracting XLA CPU
+    backend a bare-product ``x`` may fuse into the two_sum add (see
+    two_prod's platform note) at ~1 ulp cost — accepted there.
     """
     t, e = two_sum(acc, x)
     c = comp - e

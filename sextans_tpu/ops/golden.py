@@ -8,7 +8,7 @@ Two variants are provided:
 
 * :func:`golden_spmm` — vectorized float32 NumPy, the everyday oracle;
 * :func:`golden_spmm_exact` — float64 accumulation, used as the "truth"
-  against which both the golden float32 model and the TPU kernels are judged
+  against which both the golden float32 model and the engines are judged
   for the 1e-6 max-abs-error north star (BASELINE.md).
 """
 

@@ -4,26 +4,25 @@ The reference FPGA is *structure-independent*: its PEs decode an arbitrary
 per-edge column every cycle (src/sextans.cpp:388-419), so webgraph-class and
 stencil-class matrices run at the same 64 nnz/cycle as FEM matrices. Block
 formats lose that property — a power-law or pure-diagonal pattern shatters
-into nearly-empty blocks. The TPU-native answer is not a gather PE but a
+into nearly-empty blocks. The answer here is not a gather PE but a
 *representation split*: decompose A by structure and give each part the
 execution engine it maps onto:
 
 * **Diagonals** (stencil / KKT / banded class): a diagonal ``c`` stores
   ``A[i, i+c]`` as a dense vector; its SpMM contribution is
   ``diag[:, None] * B[i+c, :]`` — a shifted elementwise FMA over (M, N)
-  that XLA fuses across diagonals into full-width VPU work with zero
-  padding or steering. (DIA format, reborn as fused XLA.)
+  that XLA fuses across diagonals into one loop with zero padding or
+  steering. (DIA format, reborn as fused XLA.)
 * **Dense head columns** (power-law class): the hub columns — for the
   webgraph generator the top 128 columns carry ~70% of nnz — are lifted
-  into a dense (M, H) matrix; their contribution is one MXU matmul
-  ``head @ B[head_cols]`` at full systolic-array rate.
-* **Residue**: whatever structure remains goes through the blocked Pallas
-  kernels (VPU 8xBK blocks or MXU dense slabs), picked by the analytic
-  autotuner.
+  into a dense (M, H) matrix; their contribution is one dense matmul
+  ``head @ B[head_cols]`` at ``Precision.HIGHEST``.
+* **Residue**: whatever structure remains goes through the packed formats'
+  engines (ops/engines.py), the format picked by the analytic autotuner.
 
 ``C = beta*C + alpha*(diag_part + head_part) `` feeds the residue kernel as
 its C input with beta=1, so the whole composition is ONE jitted program and
-two kernel launches at most.
+one residue engine call.
 """
 
 from __future__ import annotations
@@ -126,45 +125,24 @@ class HybridSplit:
         )
 
 
-def _residue_edge_cycles(n: int) -> float:
-    """Best-case modeled cycles to process ONE residue nonzero across the
-    full N width (edge-kernel model, utils/autotune.py constants)."""
-    from sextans_tpu.utils.autotune import (
-        EDGE_CYCLES_FIXED,
-        EDGE_CYCLES_PER_128LANES,
-    )
-
-    best = float("inf")
-    for tn in (128, 256, 512):
-        panels = max(1, -(-n // tn))
-        best = min(
-            best,
-            EDGE_CYCLES_FIXED * panels + EDGE_CYCLES_PER_128LANES * n / 128,
-        )
-    return best
+def _residue_bytes_per_nnz(n: int) -> float:
+    """Bytes one residue nonzero costs at width n in the cheapest format
+    (ELL gather: one B row plus its column/value record)."""
+    return 4.0 * n + 8.0
 
 
 def _cost_based_degree(m_other: int, n: int, length: int) -> int:
-    """Marginal break-even degree for lifting one column (or row) into the
-    dense head: lift when ``deg * residue_edge_cycles`` exceeds the dense
-    strip's cost (MXU flops at ~10k FLOP/cycle + its HBM read)."""
-    from sextans_tpu.utils.autotune import BYTES_PER_CYCLE
-
-    dense_cycles = 2.0 * length * n / 10000.0 + length * 4 / BYTES_PER_CYCLE
-    return max(4, int(dense_cycles / max(_residue_edge_cycles(n), 1e-9)))
+    """Break-even degree for lifting one column (or row) of ``length``
+    entries into the dense head: lift when its residue bytes exceed the
+    dense strip's ``length * 4``."""
+    return max(4, int(4.0 * length / _residue_bytes_per_nnz(n)))
 
 
 def _cost_based_diag(m: int, n: int) -> int:
-    """Marginal break-even count for lifting one DIAGONAL: the tiled DIA
-    kernel adds ~``2*M*n/2048`` VPU FMA cycles + an ``M*4``-byte dvals read
-    per diagonal (clustered offsets share the B window, so the window
-    traffic is not marginal). Circuit/stencil bands of many ~3%-dense
-    diagonals clear this easily where the old fixed 15% rule rejected
-    them (round-3: scircuit-class)."""
-    from sextans_tpu.utils.autotune import BYTES_PER_CYCLE
-
-    dia_cycles = 2.0 * m * n / 2048.0 + m * 4 / BYTES_PER_CYCLE
-    return max(4, int(dia_cycles / max(_residue_edge_cycles(n), 1e-9)))
+    """Break-even nonzero count for lifting one diagonal: its dense values
+    cost ``m * 4`` bytes, and the shifted B reads of all diagonals fuse into
+    one pass."""
+    return max(4, int(4.0 * m / _residue_bytes_per_nnz(n)))
 
 
 def split_structure(
@@ -184,15 +162,14 @@ def split_structure(
 
     Selection heuristics (cost-motivated):
 
-    * a diagonal is lifted when it holds >= ``diag_min_density * m``
-      nonzeros — below that, the (M, N) elementwise pass costs more memory
-      traffic than the nonzeros justify;
+    * a diagonal is lifted when it holds enough nonzeros: with ``n``
+      given, when their residue bytes exceed its dense values' ``m * 4``
+      (:func:`_cost_based_diag`); without ``n``, at
+      ``diag_min_density * m`` nonzeros;
     * a column is lifted into the head when it pays: with ``n`` given, the
-      threshold is the *marginal break-even degree* — the dense MXU strip
-      costs ``2*M*n/10k + M*4/BW`` cycles vs ~``deg * edge-kernel
-      per-edge`` cycles in the residue (round-3 widening: on webgraph-class
-      at N=512 this lifts columns down to degree ~125 where the old fixed
-      0.4%% rule stopped at 400). Without ``n``, the fixed
+      threshold is the break-even degree at which the column's residue
+      bytes (``deg * (4n + 8)``) exceed the dense strip's ``M * 4``
+      (:func:`_cost_based_degree`). Without ``n``, the fixed
       ``head_min_degree_frac * m`` rule applies. Either way the head is
       capped at ``max_head_cols`` densest columns (M x H x 4 bytes);
     * everything else is the residue, in ORIGINAL coordinates (no global
@@ -331,7 +308,6 @@ class HybridSpmmPlan:
         residue_config: Optional[SpmmConfig] = None,
         residue_fmt: Optional[str] = None,
         backend: str = "auto",
-        dia_backend: str = "auto",
         pack_cache=None,
         cache_name: Optional[str] = None,
         precise: int = 0,
@@ -341,11 +317,11 @@ class HybridSpmmPlan:
         ``f"{matrix}@n{n}-residue"`` — the cache's content fingerprint
         protects non-trust_name callers either way).
 
-        ``precise``: 0 = fast path. 1/2 = the 1e-6-gate sample composition
-        (docs/ACCURACY.md): the residue kernel runs at the same precise
-        level with alpha=1/beta=0, the DIA kernel runs compensated, and the
-        parts combine through error-free transforms (ops/df32.py) with one
-        final rounding per element — instead of the fast path's chained
+        ``precise``: 0 = fast path. 1/2 = the precise composition
+        (docs/ACCURACY.md): the residue engine runs precise (float64
+        accumulation) with alpha=1/beta=0, and the parts combine through
+        error-free transforms (ops/df32.py) with one final rounding per
+        element — instead of the fast path's chained
         ``C_in = beta*C + alpha*(dense parts)`` feed into the residue,
         which rounds at full magnitude once per stage."""
         import jax
@@ -421,149 +397,38 @@ class HybridSpmmPlan:
 
         offsets = [int(c) for c in split.diag_offsets]
         m, k = self.m, self.k
-        pad_lo = max(0, -(min(offsets) if offsets else 0))
-        pad_hi = max(0, (max(offsets) if offsets else 0) + m - k)
-
-        # Diagonal engine: the Pallas DIA kernel on TPU (XLA formulations
-        # materialize (M, N) temporaries per diagonal — 80-300 ms measured
-        # for 7 diagonals on laplace3d_64); a lax.map-tiled XLA fallback
-        # elsewhere.
-        if dia_backend == "auto":
-            dia_backend = (
-                "pallas" if jax.devices()[0].platform == "tpu" else "xla"
-            )
-        self.dia_backend = dia_backend
-        from sextans_tpu.utils.config import round_up as _round_up
-
-        dia_tile_m = 512
-        dia_tile_n = min(512, _round_up(max(n, 1), 128))
-        # Skinny-N: the C-transposed DIA kernel runs M on the 128-lane axis
-        # so the VPU is full-width at any N (the standard layout pads N to
-        # 128 lanes — an 8x FLOP waste at N=16; measured 5.8 ms on
-        # scircuit-class where the memory bound is ~0.7 ms).
-        use_dia_ct = n <= 32
-        n_ct_dia = _round_up(max(n, 1), 8)
-        if self.has_diag and dia_backend in ("pallas", "pallas_interpret"):
-            from sextans_tpu.ops.spmm_dia_pallas import cluster_offsets
-
-            # bound the B blocks per grid step (VMEM): shrink tile_n first
-            nb_blocks = sum(
-                (cl[-1] - cl[0]) // dia_tile_m + 2
-                for cl in cluster_offsets(offsets, dia_tile_m)
-            )
-            while (
-                dia_tile_n > 128
-                and (nb_blocks + 3) * dia_tile_m * dia_tile_n * 4 > 12 * 2**20
-            ):
-                dia_tile_n //= 2
-            m_pad_dia = _round_up(m, dia_tile_m)
-            if use_dia_ct:
-                dvc = np.zeros((len(offsets), m_pad_dia), dtype=np.float32)
-                dvc[:, :m] = split.diag_vals
-                self._dev["dvt"] = jnp.asarray(dvc)
-            else:
-                dvt = np.zeros((m_pad_dia, len(offsets)), dtype=np.float32)
-                dvt[:m] = split.diag_vals.T
-                self._dev["dvt"] = jnp.asarray(dvt)
-        self._dia_shapes = (dia_tile_m, dia_tile_n)
         has_diag, has_head = self.has_diag, self.has_head
         has_hrows = self.has_hrows
         has_residue = split.residue.nnz > 0
-        use_dia_kernel = has_diag and dia_backend in (
-            "pallas",
-            "pallas_interpret",
-        )
-        dia_interp = dia_backend == "pallas_interpret"
-        m_pad_dia = _round_up(m, dia_tile_m)
         res_jit = self._residue_plan._jit  # jitted fn: inlines when traced
         res_dev = self._residue_plan._dev
         dense_dev = tuple(
             self._dev[key]
-            for key in (
-                "dvt" if use_dia_kernel else "dvals",
-                "head",
-                "head_cols",
-                "hrows",
-                "hrows_idx",
-            )
+            for key in ("dvals", "head", "head_cols", "hrows", "hrows_idx")
             if key in self._dev
         )
-
-        # Tiled DIA evaluation: one B window dynamic-slice per M-tile, all
-        # diagonals fused into a single pass over that window. Evaluating
-        # diagonals as full-height shifted B slices instead makes XLA
-        # materialize a (M, N) temporary per diagonal (measured 80 ms for 7
-        # diagonals on laplace3d_64 N=512 — ~40 memory passes); the tiled
-        # form is bounded by B + C traffic.
-        TM = 4096
-        dpad_lo = max(0, -(min(offsets) if offsets else 0))
-        # the largest in-window index is max_off + dpad_lo (+ TM rows)
-        win_extra = (max(offsets) + dpad_lo) if offsets else 0
-        win = TM + win_extra
-        nt = -(-m // TM)
-        m_tiles_pad = nt * TM
+        pad_lo = max(0, -(min(offsets) if offsets else 0))
+        pad_hi = max(0, (max(offsets) if offsets else 0) + m - k)
 
         def dia_part(dvals, b, alpha):
-            n_cols = b.shape[1]
-            rows_needed = m_tiles_pad + win_extra + 1
-            bp = jnp.pad(b, ((dpad_lo, max(0, rows_needed - k - dpad_lo)), (0, 0)))
-            dv = jnp.pad(dvals, ((0, 0), (0, m_tiles_pad - m)))
-
-            def tile_fn(i):
-                start = i * TM
-                w = jax.lax.dynamic_slice(bp, (start, 0), (win, n_cols))
-                dvt = jax.lax.dynamic_slice(dv, (0, start), (dv.shape[0], TM))
-                acc = jnp.zeros((TM, n_cols), jnp.float32)
-                for j, off in enumerate(offsets):
-                    lo = off + dpad_lo
-                    acc = acc + dvt[j][:, None] * w[lo : lo + TM]
-                return acc
-
-            tiles = jax.lax.map(tile_fn, jnp.arange(nt))
-            return alpha * tiles.reshape(m_tiles_pad, n_cols)[:m]
+            """alpha * sum_d diag_d[:, None] * B[i + offset_d]: shifted
+            slices of one padded B, which XLA fuses into one loop."""
+            bp = jnp.pad(b, ((pad_lo, pad_hi), (0, 0)))
+            acc = dvals[0][:, None] * jax.lax.slice_in_dim(
+                bp, offsets[0] + pad_lo, offsets[0] + pad_lo + m
+            )
+            for j, off in enumerate(offsets[1:], start=1):
+                acc = acc + dvals[j][:, None] * jax.lax.slice_in_dim(
+                    bp, off + pad_lo, off + pad_lo + m
+                )
+            return alpha * acc
 
         def dense_parts(dense_args, b, c, alpha, beta):
             """beta*C + alpha*(diagonal + head contributions)."""
             args = list(dense_args)
-            if use_dia_kernel and use_dia_ct:
-                from sextans_tpu.ops.spmm_dia_pallas import spmm_dia_ct_padded
-
-                dvc = args.pop(0)
-                n_cols = b.shape[1]
-                bt = jnp.pad(
-                    jnp.transpose(b),
-                    ((0, n_ct_dia - n_cols), (pad_lo, 0)),
-                )
-                ct = jnp.pad(
-                    jnp.transpose(c),
-                    ((0, n_ct_dia - n_cols), (0, m_pad_dia - m)),
-                )
-                acc_t = spmm_dia_ct_padded(
-                    dvc, bt, ct, alpha, beta,
-                    offsets=tuple(offsets),
-                    tile_m=dia_tile_m,
-                    interpret=dia_interp,
-                )
-                acc = jnp.transpose(acc_t)[:m, :n_cols]
-            elif use_dia_kernel:
-                from sextans_tpu.ops.spmm_dia_pallas import spmm_dia_padded
-
-                dvt = args.pop(0)
-                n_cols = b.shape[1]
-                ncp = -(-n_cols // dia_tile_n) * dia_tile_n
-                bp = jnp.pad(b, ((pad_lo, 0), (0, ncp - n_cols)))
-                cp = jnp.pad(c, ((0, m_pad_dia - m), (0, ncp - n_cols)))
-                acc = spmm_dia_padded(
-                    dvt, bp, cp, alpha, beta,
-                    offsets=tuple(offsets),
-                    tile_m=dia_tile_m,
-                    tile_n=dia_tile_n,
-                    interpret=dia_interp,
-                )[:m, :n_cols]
-            else:
-                acc = beta * c
-                if has_diag:
-                    acc = acc + dia_part(args.pop(0), b, alpha)
+            acc = beta * c
+            if has_diag:
+                acc = acc + dia_part(args.pop(0), b, alpha)
             if has_head:
                 head = args.pop(0)
                 head_cols = args.pop(0)
@@ -589,64 +454,24 @@ class HybridSpmmPlan:
             partial = dense_parts(dense_args, b, c, alpha, beta)
             if not has_residue:
                 return partial
-            return res_jit(*res_args, b, partial, alpha, jnp.float32(1.0))
+            return res_jit(res_args, b, partial, alpha, jnp.float32(1.0))
 
         if self.precise:
-            # Gate-sample composition (docs/ACCURACY.md): residue-first at
-            # alpha=1/beta=0 through the precise kernel, DIA compensated,
-            # and all parts combined with error-free transforms — ONE final
-            # rounding per element instead of one per stage. The remaining
-            # floor is each part's own f32 rounding (>= 0.5 ulp of its own
-            # magnitude) plus the MXU head contraction's internal rounding.
+            # Precise composition (docs/ACCURACY.md): residue at
+            # alpha=1/beta=0 through the precise engine, and all parts
+            # combined with error-free transforms — ONE final rounding per
+            # element instead of one per stage. The remaining floor is each
+            # part's own f32 rounding (>= 0.5 ulp of its own magnitude).
             from sextans_tpu.ops.df32 import two_prod, two_sum
 
             res_noc = self._residue_plan._jit_noc
             prec_hi = jax.lax.Precision.HIGHEST
 
-            def dia_only(dv_arg, b):
-                """Compensated alpha=1/beta=0 diagonal part, (m, n) f32."""
-                n_cols = b.shape[1]
-                one = jnp.float32(1.0)
-                zero = jnp.float32(0.0)
-                if use_dia_kernel and use_dia_ct:
-                    from sextans_tpu.ops.spmm_dia_pallas import (
-                        spmm_dia_ct_padded,
-                    )
-
-                    bt = jnp.pad(
-                        jnp.transpose(b),
-                        ((0, n_ct_dia - n_cols), (pad_lo, 0)),
-                    )
-                    acc_t = spmm_dia_ct_padded(
-                        dv_arg, bt,
-                        jnp.zeros((n_ct_dia, m_pad_dia), jnp.float32),
-                        one, zero, offsets=tuple(offsets),
-                        tile_m=dia_tile_m, interpret=dia_interp,
-                        with_c=False, precise=True,
-                    )
-                    return jnp.transpose(acc_t)[:m, :n_cols]
-                if use_dia_kernel:
-                    from sextans_tpu.ops.spmm_dia_pallas import (
-                        spmm_dia_padded,
-                    )
-
-                    ncp = -(-n_cols // dia_tile_n) * dia_tile_n
-                    bp = jnp.pad(b, ((pad_lo, 0), (0, ncp - n_cols)))
-                    acc = spmm_dia_padded(
-                        dv_arg, bp,
-                        jnp.zeros((m_pad_dia, ncp), jnp.float32),
-                        one, zero, offsets=tuple(offsets),
-                        tile_m=dia_tile_m, tile_n=dia_tile_n,
-                        interpret=dia_interp, with_c=False, precise=True,
-                    )
-                    return acc[:m, :n_cols]
-                return dia_part(dv_arg, b, one)
-
             def one_step(dense_args, res_args, b, c, alpha, beta):  # noqa: F811
                 args = list(dense_args)
                 acc, resid = two_prod(beta, c)
                 if has_diag:
-                    p, pe = two_prod(alpha, dia_only(args.pop(0), b))
+                    p, pe = two_prod(alpha, dia_part(args.pop(0), b, jnp.float32(1.0)))
                     acc, e = two_sum(acc, p)
                     resid = resid + (pe + e)
                 if has_head:
@@ -672,13 +497,7 @@ class HybridSpmmPlan:
                     acc = acc.at[hrows_idx].set(s)  # head_rows are unique
                     resid = resid.at[hrows_idx].add(pe + e)
                 if has_residue:
-                    if res_noc is not None:
-                        r_ = res_noc(*res_args, b, jnp.float32(1.0))
-                    else:
-                        r_ = res_jit(
-                            *res_args, b, jnp.zeros_like(c),
-                            jnp.float32(1.0), jnp.float32(0.0),
-                        )
+                    r_ = res_noc(res_args, b, jnp.float32(1.0))
                     p, pe = two_prod(alpha, r_)
                     acc, e = two_sum(acc, p)
                     resid = resid + (pe + e)
@@ -724,26 +543,26 @@ class HybridSpmmPlan:
     def __call__(self, b, alpha=1.0, beta=0.0, c=None):
         import jax.numpy as jnp
 
-        from sextans_tpu.ops.plan import retry_transient_compile
+        from sextans_tpu.ops.engines import precision_scope, scalar_f32
 
         b, c = self._coerce(b, beta, c)
-        return retry_transient_compile(
-            self._step,
-            self._dense_args, self._res_args, b, c,
-            jnp.float32(alpha), jnp.float32(beta),
-        )
+        with precision_scope(self._residue_plan.precise):
+            return self._step(
+                self._dense_args, self._res_args, b, c,
+                scalar_f32(alpha), scalar_f32(beta),
+            )
 
     def repeat(self, b, alpha=1.0, beta=0.0, c=None, times: int = 1):
         """In-device rp_time chain over the full hybrid step (one dispatch)."""
         import jax.numpy as jnp
 
-        from sextans_tpu.ops.plan import retry_transient_compile
+        from sextans_tpu.ops.engines import precision_scope, scalar_f32
 
         b, c = self._coerce(b, beta, c)
         if times not in self._repeat_cache:
             self._repeat_cache[times] = self._make_repeat(times)
-        return retry_transient_compile(
-            self._repeat_cache[times],
-            self._dense_args, self._res_args, b, c,
-            jnp.float32(alpha), jnp.float32(beta),
-        )
+        with precision_scope(self._residue_plan.precise):
+            return self._repeat_cache[times](
+                self._dense_args, self._res_args, b, c,
+                scalar_f32(alpha), scalar_f32(beta),
+            )

@@ -7,22 +7,18 @@ Under XLA every shape is a fresh compilation, so a naive port pays 20-40 s
 of compile per new matrix. This module restores the reference's property
 the XLA way: **shape bucketing**.
 
-All kernel entry points (ops/spmm_pallas.py etc.) are module-level
-``jax.jit`` functions whose cache keys are (operand shapes, static
-knobs). A pack padded to canonical *bucket* dimensions — group count,
+All engine entry points (ops/engines.py) are module-level ``jax.jit``
+functions whose cache keys are (operand shapes, static knobs). A pack padded to canonical *bucket* dimensions — group count,
 M-tile count, K-window count rounded up a geometric series — therefore
 hits the SAME compiled executable as every other matrix in its bucket.
 B and C are padded on the host (a memcpy, no compile), and the padded
 output is sliced on the host after fetch. The group padding extends the
 last real group's m-tile run with zero-valued blocks (the same
 SPMD-uniformity machinery as multi-chip stacking,
-parallel/partition._pad_shard_groups), so the kernels' first/last-group
-epilogue logic is untouched and padded work contributes exact zeros.
-
-Measured on TPU v5e (benchmarks/scratch/serve_probe.py): the first matrix
-of a bucket pays the one-time compile; the second, previously-unseen
-matrix in the same bucket serves with ZERO recompile (sub-ms plan build,
-first call at steady-state kernel latency).
+parallel/partition._pad_shard_groups), so padded work contributes exact
+zeros. The first matrix of a bucket pays the one-time compile; a second,
+previously unseen matrix in the same bucket is served with zero recompiles
+(tests/test_serve.py counts them; chip_smoke.py does so on the GPU).
 
 Bucket overhead: padded groups are real (zero-valued) kernel work — the
 geometric growth factor bounds it at <= ``growth - 1`` (default 25%) of
@@ -39,7 +35,14 @@ import numpy as np
 from sextans_tpu.format.pack import PackedSpMatrix, pack
 from sextans_tpu.format.pack_edge import PackedSpMatrixEdge, pack_edge
 from sextans_tpu.format.pack_ell import PackedSpMatrixELL, pack_ell
-from sextans_tpu.format.pack_mxu import PackedSpMatrixMXU, pack_mxu
+from sextans_tpu.format.pack_mxu import pack_mxu
+from sextans_tpu.ops.engines import (
+    device_arrays,
+    precision_scope,
+    resolve_backend,
+    run_padded,
+    scalar_f32,
+)
 from sextans_tpu.utils.config import SpmmConfig, cdiv, round_up
 
 __all__ = ["SpmmServer", "ServePlan", "bucketize_pack", "bucket_up"]
@@ -129,18 +132,16 @@ def bucketize_pack(packed, growth: float = 1.25):
 
 
 class ServePlan:
-    """Executor for one served matrix; shares compiled kernels bucket-wide.
+    """Executor for one served matrix; shares compiled engines bucket-wide.
 
     Unlike :class:`~sextans_tpu.ops.plan.SpmmPlan` (which jit-compiles a
-    per-instance pad→kernel→slice wrapper), a ServePlan pads B/C on the
-    HOST and invokes the module-level kernel jit directly, so its device
+    per-instance pad→engine→slice wrapper), a ServePlan pads B/C on the
+    HOST and invokes the module-level engine jit directly, so its device
     program is exactly the bucket's shared executable.
     """
 
-    def __init__(self, packed, n: int, backend: str, tile_n: int):
-        import jax.numpy as jnp
-
-        # ServePlan feeds B/C to the kernel untouched (the bucket's shared
+    def __init__(self, packed, n: int, backend: str):
+        # ServePlan feeds B/C to the engine untouched (the bucket's shared
         # executable has no per-matrix gather). A degree-reordered pack
         # (pack(..., reorder_cols=True)) needs B[col_perm] / C[row_perm]
         # plumbing that only SpmmPlan implements — reject it loudly instead
@@ -156,110 +157,30 @@ class ServePlan:
         self.backend = backend
         self.m, self.k = packed.shape
         self.n = n
-        self.tile_n = tile_n
-        self.n_padded = round_up(n, tile_n)
         self.m_padded = packed.m_padded
         # ELL buckets K too (k_bucket stamped by _bucketize_ell): B pads to
         # the bucketed gather space so the engine jit never sees a raw K
         self.k_padded = getattr(packed, "k_bucket", packed.k_padded)
-        is_edge = isinstance(packed, PackedSpMatrixEdge)
-        is_ell = isinstance(packed, PackedSpMatrixELL)
-        dev_cache = packed.__dict__.setdefault("_dev_cache", {})
-        import jax
-
-        dev_key = ("dev", jax.devices()[0].id, jax.devices()[0].platform)
-        if dev_key in dev_cache:
-            self._dev = dev_cache[dev_key]
-        elif is_ell:
-            self._dev = (
-                jnp.asarray(packed.vals),
-                jnp.asarray(packed.cols),
-                jnp.asarray(packed.fold_rows),
-            )
-            dev_cache[dev_key] = self._dev
-        else:
-            self._dev = (
-                jnp.asarray(packed.vals),
-                jnp.asarray(
-                    packed.meta
-                    if is_edge
-                    else (
-                        packed.qm
-                        if isinstance(packed, PackedSpMatrixMXU)
-                        else packed.qrow
-                    )
-                ),
-                jnp.asarray(
-                    jnp.zeros((1,), jnp.int32) if is_edge else packed.bcol
-                ),
-                jnp.asarray(packed.group_mtile),
-                jnp.asarray(packed.group_kwin),
-            )
-            dev_cache[dev_key] = self._dev
+        self._dev = device_arrays(packed)
 
     def _pad_host(self, b, c):
-        bp = np.zeros((self.k_padded, self.n_padded), np.float32)
-        bp[: self.k, : self.n] = b
-        cp = np.zeros((self.m_padded, self.n_padded), np.float32)
+        bp = np.zeros((self.k_padded, self.n), np.float32)
+        bp[: self.k] = b
+        cp = np.zeros((self.m_padded, self.n), np.float32)
         if c is not None:
-            cp[: self.m, : self.n] = c
+            cp[: self.m] = c
         return bp, cp
 
     def call_padded(self, b_padded, c_padded, alpha, beta):
-        """Raw bucket-shaped call: (k_padded, n_padded) B and
-        (m_padded, n_padded) C in, padded output device array out."""
-        import jax.numpy as jnp
-
+        """Raw bucket-shaped call: (k_padded, n) B and (m_padded, n) C in,
+        padded output device array out."""
         cfg = self.packed.config
-        a32, b32 = jnp.float32(alpha), jnp.float32(beta)
-        if self.backend == "ell":
-            from sextans_tpu.ops.spmm_ell_xla import spmm_ell_padded
-
-            return spmm_ell_padded(
-                *self._dev, b_padded, c_padded, a32, b32,
-                m_block=cfg.tile_m, m_base=self.packed.m_base,
-                with_c=True, precise=bool(cfg.precise),
+        with precision_scope(cfg.precise):
+            return run_padded(
+                self.backend, cfg, self._dev, b_padded, c_padded,
+                scalar_f32(alpha), scalar_f32(beta),
+                m_base=getattr(self.packed, "m_base", 0),
             )
-        if self.backend == "mxu":
-            from sextans_tpu.ops.spmm_mxu_pallas import spmm_mxu_padded
-
-            return spmm_mxu_padded(
-                *self._dev, b_padded, c_padded, a32, b32,
-                tile_m=cfg.tile_m, window_k=cfg.window_k,
-                block_k=cfg.block_k, group_blocks=cfg.group_blocks,
-                tile_n=self.tile_n, unroll=cfg.chunk_unroll,
-                precise=cfg.precise,
-            )
-        if self.backend == "edge":
-            from sextans_tpu.ops.spmm_edge_pallas import spmm_edge_padded
-
-            vals, meta, _, gmt, gkw = self._dev
-            return spmm_edge_padded(
-                vals, meta, gmt, gkw, b_padded, c_padded, a32, b32,
-                tile_m=cfg.tile_m, window_k=cfg.window_k,
-                edge_chunk=cfg.edge_chunk, edge_lanes=cfg.edge_lanes,
-                tile_n=self.tile_n, masked=cfg.edge_masked,
-                precise=cfg.precise,
-            )
-        if self.backend == "xla":
-            from sextans_tpu.ops.spmm_xla import spmm_xla_padded
-
-            return spmm_xla_padded(
-                *self._dev, b_padded, c_padded, a32, b32,
-                tile_m=cfg.tile_m, window_k=cfg.window_k,
-                block_k=cfg.block_k, group_blocks=cfg.group_blocks,
-            )
-        from sextans_tpu.ops.spmm_pallas import spmm_pallas_padded
-
-        return spmm_pallas_padded(
-            *self._dev, b_padded, c_padded, a32, b32,
-            tile_m=cfg.tile_m, window_k=cfg.window_k,
-            block_k=cfg.block_k, group_blocks=cfg.group_blocks,
-            tile_n=self.tile_n,
-            interpret=(self.backend == "pallas_interpret"),
-            n_acc=cfg.n_acc, chunk_unroll=cfg.chunk_unroll,
-            precise=cfg.precise,
-        )
 
     def __call__(self, b, alpha=1.0, beta=0.0, c=None) -> np.ndarray:
         b = np.asarray(b, dtype=np.float32)
@@ -275,7 +196,7 @@ class ServePlan:
                 )
         bp, cp = self._pad_host(b, c)
         out = self.call_padded(bp, cp, alpha, beta)
-        return np.asarray(out)[: self.m, : self.n]
+        return np.asarray(out)[: self.m]
 
 
 class SpmmServer:
@@ -297,37 +218,12 @@ class SpmmServer:
         growth: float = 1.25,
         pack_cache=None,
     ):
-        if fmt not in ("vpu", "mxu", "edge", "ell"):
-            raise ValueError(
-                f"SpmmServer supports vpu/mxu/edge/ell formats, got {fmt!r}"
-            )
-        if backend == "auto":
-            import jax
-
-            on_tpu = jax.devices()[0].platform == "tpu"
-            backend = {
-                "mxu": "mxu" if on_tpu else "mxu_interpret",
-                "edge": "edge" if on_tpu else "edge_interpret",
-                # the ELL HBM-gather engine is stock XLA: servable on both
-                # TPU and CPU (the Pallas chunk-gather twin is not — its
-                # scalar-prefetch chunk tables are per-matrix shaped)
-                "ell": "ell",
-            }.get(fmt, "pallas" if on_tpu else "xla")
-        if backend in ("mxu_interpret", "edge_interpret",
-                       "ell_pallas", "ell_pallas_interpret"):
-            raise ValueError(
-                f"backend {backend!r} not servable (interpret re-traces per "
-                "shape; ell_pallas's scalar-prefetch chunk tables are "
-                "per-matrix shaped — serve fmt='ell' uses the XLA gather "
-                "engine)"
-            )
+        self.backend = resolve_backend(fmt, backend, precise=config.precise)
         self.n = n
         self.config = config
         self.fmt = fmt
-        self.backend = backend
         self.growth = growth
         self.pack_cache = pack_cache
-        self.tile_n = config.resolve_tile_n(n)
         self._buckets: set = set()
 
     def bucket_signature(self, packed) -> tuple:
@@ -339,7 +235,6 @@ class SpmmServer:
                 packed.n_virt,
                 packed.m_base,
                 getattr(packed, "k_bucket", packed.k),
-                self.tile_n,
                 self.backend,
             )
         return (
@@ -348,7 +243,6 @@ class SpmmServer:
             else packed.n_chunks,
             packed.n_mtiles,
             packed.n_kwins,
-            self.tile_n,
             self.backend,
         )
 
@@ -371,7 +265,7 @@ class SpmmServer:
             packed = pack(coo, self.config)
         bucketed = bucketize_pack(packed, self.growth)
         sig = self.bucket_signature(bucketed)
-        p = ServePlan(bucketed, self.n, self.backend, self.tile_n)
+        p = ServePlan(bucketed, self.n, self.backend)
         p.bucket_new = sig not in self._buckets
         self._buckets.add(sig)
         return p

@@ -5,17 +5,14 @@ The library analog of the reference's host-side kernel launch
 operands to tile boundaries, dispatches to a backend, and slices the result
 back to (M, N).
 
-Backends (``*_interpret`` variants run the same kernels in the Pallas
-interpreter — the reference's swsim analog):
+Backends (ops/engines.py lists them per packed format):
 
-* ``"pallas"`` — VPU block kernel (ops/spmm_pallas.py) over the 8xbk format;
-* ``"mxu"``    — MXU dense-slab kernel (ops/spmm_mxu_pallas.py), the
-  flagship engine for structured matrices (auto-selected for
-  PackedSpMatrixMXU operands; uses the C-transposed variant when N <= 32);
-* ``"edge"``   — structure-independent per-nonzero stream
-  (ops/spmm_edge_pallas.py) over the 8 B/nnz edge format;
-* ``"xla"``    — portable pure-XLA backend (ops/spmm_xla.py);
-* ``"auto"``   — picked from the packed format + platform.
+* ``"xla"``        — block engine over the 8 x block_k format;
+* ``"mxu"``        — slab engine over the block_k x 128 dense-slab format;
+* ``"edge"``       — per-nonzero gather/scatter over the edge format;
+* ``"ell"``        — plain-XLA gather over the ELL format;
+* ``"ell_triton"`` — Pallas/Triton gather over the ELL format (GPU only);
+* ``"auto"``       — picked from the packed format + platform.
 """
 
 from __future__ import annotations

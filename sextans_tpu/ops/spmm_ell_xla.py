@@ -1,27 +1,21 @@
-"""HBM-gather SpMM engine over the ELL format (format/pack_ell.py).
-
-The per-edge Pallas paths are bounded by the dynamic-sublane extract
-(~20 cycles/edge, docs/DESIGN.md §"the scatter bound") — a VPU pipeline
-bound. This engine phrases the same product as R bulk row-gathers from B
-plus a slot-weighted reduction, executed entirely by stock XLA:
+"""Plain-XLA gather SpMM engine over the ELL format (format/pack_ell.py).
 
     AB[i, :] = sum_r vals[i, r] * B[cols[i, r], :]
 
-XLA lowers the gather to bulk HBM traffic, so the cost model is bytes, not
-edges: ~(m_padded * R) B-row fetches per call, independent of the sparsity
-*pattern* (only the degree distribution matters — the pack caps inflation).
-On low-degree scattered classes (road/web/econ: 3-6 nnz/row) this
-undercuts the 20-cycle-per-edge floor whenever HBM can serve a padded B row
-faster than the VPU can extract one — measured, per matrix, by the suite's
-candidate race like every other engine.
+The R slot terms are one elementwise expression over all rows, which XLA
+fuses into a single gather-multiply-add loop writing AB once, so the cost
+is bytes: about ``m_padded * R`` gathered B rows per call, whatever the
+sparsity pattern (the pack caps slot inflation). Pad slots (value 0) are
+selected away, so a non-finite B row cannot leak into rows through them.
+Hub rows split at pack time into virtual rows are folded back with one
+scatter-add before the alpha/beta epilogue.
 
-The reduction runs in f32 with sequential slot order (pads contribute exact
-zeros for finite B), and hub rows split at pack time are folded back with
-one small scatter-add before the alpha/beta epilogue.
+C comes at the caller's row count ``m_c`` (``m_base <= m_c <= m_padded``)
+and the result has the same rows, so a plan passes C unpadded and gets
+exactly M rows back; rows from ``m_base`` on are scratch.
 
-``lax.map`` over row blocks (``config.tile_m`` rows each) keeps the
-(block, R, n) gather intermediate bounded instead of materializing the full
-(m_padded, R, n) tensor.
+``precise`` accumulates the slots, the fold and the epilogue in float64
+and needs x64 enabled at trace time.
 """
 
 from __future__ import annotations
@@ -31,71 +25,52 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-__all__ = ["spmm_ell_padded"]
+from sextans_tpu.ops.spmm_xla import acc_dtype
+
+__all__ = ["spmm_ell_padded", "fold_hub_rows"]
 
 
-@partial(jax.jit, static_argnames=("m_block", "m_base", "with_c", "precise"))
+def fold_hub_rows(ab: jax.Array, fold_rows: jax.Array, m_base: int):
+    """Add virtual rows [m_base, m_base + n_virt) of ``ab`` into their real
+    rows ``fold_rows`` (ascending, duplicates accumulate). The virtual rows
+    themselves stay in ``ab``; callers slice them away."""
+    n_virt = fold_rows.shape[0]
+    if not n_virt:
+        return ab
+    return ab.at[fold_rows].add(
+        jax.lax.dynamic_slice_in_dim(ab, m_base, n_virt, 0),
+        indices_are_sorted=True,
+        unique_indices=False,
+    )
+
+
+@partial(jax.jit, static_argnames=("m_base", "with_c", "precise"))
 def spmm_ell_padded(
     vals: jax.Array,  # (m_padded, R) f32
     cols: jax.Array,  # (m_padded, R) i32
     fold_rows: jax.Array,  # (n_virt,) i32 — real row per virtual row
-    b_padded: jax.Array,  # (k, n_padded) f32
-    c_padded: jax.Array,  # (m_padded, n_padded) f32
+    b: jax.Array,  # (k, n) f32
+    c: jax.Array,  # (m_c, n) f32, m_base <= m_c <= m_padded
     alpha: jax.Array,
     beta: jax.Array,
     *,
-    m_block: int,
     m_base: int,
     with_c: bool = True,
-    precise: bool = False,
+    precise: int = 0,
 ) -> jax.Array:
-    m_padded, r = vals.shape
-    n_padded = b_padded.shape[1]
-    n_blocks = m_padded // m_block
+    acc_dt = acc_dtype(precise)
 
-    import numpy as _np
+    def slot(r_i):
+        # pad slots (value 0) contribute 0 even where B holds Inf or NaN
+        v = vals[:, r_i, None].astype(acc_dt)
+        term = v * jnp.take(b, cols[:, r_i], axis=0).astype(acc_dt)
+        return jnp.where(v != 0, term, 0)
 
-    # precise: widen the slot reduction, fold, and epilogue to f64 (native
-    # on CPU where this engine is the fast path; requires x64 enabled at
-    # trace time — the precise drivers wrap calls in jax.enable_x64)
-    use64 = precise and (
-        jax.dtypes.canonicalize_dtype(_np.float64) == _np.float64
-    )
-    acc_dt = jnp.float64 if use64 else jnp.float32
-
-    def blk(xs):
-        v, cl = xs  # (m_block, R)
-        # unrolled slot loop: each step is gather -> multiply -> add, an
-        # elementwise chain XLA can fuse without materializing a
-        # (m_block, R, n) intermediate
-        acc = v[:, 0, None].astype(acc_dt) * jnp.take(
-            b_padded, cl[:, 0], axis=0
-        ).astype(acc_dt)
-        for r_i in range(1, r):
-            acc = acc + v[:, r_i, None].astype(acc_dt) * jnp.take(
-                b_padded, cl[:, r_i], axis=0
-            ).astype(acc_dt)
-        return acc
-
-    ab = jax.lax.map(
-        blk,
-        (vals.reshape(n_blocks, m_block, r), cols.reshape(n_blocks, m_block, r)),
-    ).reshape(m_padded, n_padded)
-
-    n_virt = fold_rows.shape[0]
-    if n_virt:
-        # fold virtual hub rows back into their real rows (duplicate
-        # targets accumulate); virtual-row outputs themselves are sliced
-        # away by the caller (plan returns out[:m])
-        ab = ab.at[fold_rows].add(
-            jax.lax.dynamic_slice_in_dim(ab, m_base, n_virt, 0),
-            indices_are_sorted=True,
-            unique_indices=False,
-        )
-
-    a_ = alpha.astype(acc_dt)
+    ab = slot(0)
+    for r_i in range(1, vals.shape[1]):
+        ab = ab + slot(r_i)
+    ab = fold_hub_rows(ab, fold_rows, m_base)[: c.shape[0]]
+    out = alpha.astype(acc_dt) * ab
     if with_c:
-        out = a_ * ab + beta.astype(acc_dt) * c_padded.astype(acc_dt)
-    else:
-        out = a_ * ab
+        out = out + beta.astype(acc_dt) * c.astype(acc_dt)
     return out.astype(jnp.float32)

@@ -13,10 +13,9 @@ the mesh's row axis with ZERO collectives in the step (B replicated, the
 same property as the blocked row shard, parallel/sharding.py):
 
 * **diagonals** — shard s owns ``diag_vals[:, lo:hi]``; its contribution
-  reads the B window ``[lo + min_off, hi + max_off)``, obtained with ONE
-  dynamic slice of the replicated padded B at the shard's row base
-  (offsets stay static per-compilation, so the per-shard program is
-  SPMD-uniform);
+  reads the B window ``[lo + min_off, hi + max_off)``, gathered for every
+  shard before the shard_map and passed in row-sharded (offsets stay
+  static per compilation, so the per-shard program is SPMD-uniform);
 * **dense head columns** — ``head_dense[lo:hi]`` shards; the (H, N)
   ``B[head_cols]`` gather is replicated work;
 * **dense head rows** — each hub row lands on exactly one shard; per-shard
@@ -39,10 +38,15 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from sextans_tpu.ops.engines import (
+    precision_scope,
+    resolve_backend,
+    scalar_f32,
+)
 from sextans_tpu.ops.hybrid import HybridSplit
 from sextans_tpu.parallel.partition import pack_sharded
 from sextans_tpu.parallel.sharding import make_local_kernel, make_mesh
-from sextans_tpu.utils.config import SpmmConfig, round_up
+from sextans_tpu.utils.config import SpmmConfig
 
 __all__ = ["ShardedHybridPlan"]
 
@@ -98,26 +102,8 @@ class ShardedHybridPlan:
         S = n_shards
         m, k = self.m, self.k
 
-        if backend == "auto":
-            on_tpu = jax.devices()[0].platform == "tpu"
-            backend = {
-                "mxu": "mxu" if on_tpu else "mxu_interpret",
-                "edge": "edge" if on_tpu else "edge_interpret",
-                "ell": "ell_pallas" if on_tpu else "ell",
-            }.get(residue_fmt, "pallas" if on_tpu else "xla")
-        self.backend = backend
-        if backend in ("ell_pallas", "ell_pallas_interpret"):
-            tile_n = next(
-                (c_ for c_ in (128, 256, 512, 1024) if n <= c_),
-                round_up(n, 1024),
-            )
-        elif residue_fmt == "ell":
-            tile_n = n
-        else:
-            tile_n = cfg.resolve_tile_n(n)
-        self.tile_n = tile_n
-        n_padded = round_up(n, tile_n)
-        self.n_padded = n_padded
+        self.backend = resolve_backend(residue_fmt, backend,
+                                       precise=cfg.precise)
         k_padded = self.k if residue_fmt == "ell" else sharded_res.k_padded
 
         # ---- dense components, stacked (S, ...) along the row slabs ----
@@ -158,64 +144,39 @@ class ShardedHybridPlan:
             dense_np["hrows"] = hrd
 
         # diagonal window geometry (shared, static): shard s reads padded-B
-        # rows [s*m_local, s*m_local + win) where B is pre-padded by pad_lo
+        # rows [s*m_local, s*m_local + m_local + win_extra) where B is
+        # pre-padded by pad_lo; the windows are gathered before the
+        # shard_map and arrive row-sharded
         pad_lo = max(0, -(min(offsets) if offsets else 0))
         win_extra = (max(offsets) + pad_lo) if offsets else 0
-        TM_dia = min(4096, m_local)
-        nt_dia = -(-m_local // TM_dia)
-        mt_pad_dia = nt_dia * TM_dia
-        # enough rows that the LAST shard's full (mt_pad-long) window slice
-        # stays in range — jax dynamic_slice clamps out-of-bounds starts,
-        # which would silently misalign the diagonals
-        dia_rows_needed = m_slab + (mt_pad_dia - m_local) + win_extra + 1
+        dia_rows_needed = m_slab + win_extra
+        win_rows = (np.arange(S)[:, None] * m_local
+                    + np.arange(m_local + win_extra)[None, :])
 
         has_residue = split.residue.nnz > 0
-        run_local = make_local_kernel(cfg, backend, tile_n, m_local)
+        run_local = make_local_kernel(cfg, self.backend, m_local)
         axis = mesh.axis_names[0]
 
-        # Tiled local diagonal evaluation (the XLA formulation of
-        # ops/hybrid.dia_part, per shard): one dynamic slice of the
-        # replicated padded B at the shard's row base, then static
-        # per-offset shifted FMAs — full-width VPU work, no steering.
-        TM, nt, mt_pad = TM_dia, nt_dia, mt_pad_dia
+        # Local diagonal evaluation (ops/hybrid.dia_part, per shard): static
+        # per-offset shifted slices of the shard's B window, which XLA fuses
+        # into one loop.
+        def dia_local(dvals_l, w, alpha):
+            acc = None
+            for j, off in enumerate(offsets):
+                lo = off + pad_lo
+                term = dvals_l[j][:, None] * w[lo: lo + m_local]
+                acc = term if acc is None else acc + term
+            return alpha * acc
 
-        def dia_local(dvals_l, b_dia, row_base, alpha):
-            n_cols = b_dia.shape[1]
-            w_all = jax.lax.dynamic_slice(
-                b_dia, (row_base, 0),
-                (mt_pad + win_extra + 1, n_cols),
-            )
-            dvp = jnp.pad(dvals_l, ((0, 0), (0, mt_pad - m_local)))
-
-            def tile_fn(i):
-                start = i * TM
-                w = jax.lax.dynamic_slice(
-                    w_all, (start, 0), (TM + win_extra, n_cols)
-                )
-                dvt = jax.lax.dynamic_slice(
-                    dvp, (0, start), (dvp.shape[0], TM)
-                )
-                acc = jnp.zeros((TM, n_cols), jnp.float32)
-                for j, off in enumerate(offsets):
-                    lo = off + pad_lo
-                    acc = acc + dvt[j][:, None] * w[lo: lo + TM]
-                return acc
-
-            tiles = jax.lax.map(tile_fn, jnp.arange(nt))
-            return alpha * tiles.reshape(mt_pad, n_cols)[:m_local]
-
-        def local_step(res5, dense_l, b_pad, b_dia, c_loc, alpha, beta):
+        def local_step(res5, dense_l, b_pad, b_win, c_loc, alpha, beta):
             vals, qrow, bcol, gmt, gkw = (a[0] for a in res5)
             c_l = c_loc[0]
             args = {k_: v[0] for k_, v in dense_l.items()}
-            s_idx = jax.lax.axis_index(axis)
             partial = beta * c_l
             if has_diag:
-                partial = partial + dia_local(
-                    args["dvals"], b_dia, s_idx * m_local, alpha
-                )
+                partial = partial + dia_local(args["dvals"], b_win[0], alpha)
             if has_head:
-                bh = b_pad[args["head_cols"], :]  # (H, n_pad) gather
+                bh = b_pad[args["head_cols"], :]  # (H, n) gather
                 partial = partial + alpha * jnp.dot(
                     args["head"], bh,
                     preferred_element_type=jnp.float32,
@@ -226,7 +187,7 @@ class ShardedHybridPlan:
                     args["hrows"], b_pad[:k, :],
                     preferred_element_type=jnp.float32,
                     precision=jax.lax.Precision.HIGHEST,
-                )  # (R_u, n_pad); pad rows are zero -> add exact zeros
+                )  # (R_u, n); pad rows are zero -> add exact zeros
                 partial = partial.at[args["hrows_idx"]].add(alpha * hout)
             if not has_residue:
                 return partial[None]
@@ -244,46 +205,42 @@ class ShardedHybridPlan:
             in_specs=(
                 (shard_spec,) * 5,
                 {k_: shard_spec for k_ in dense_np},
-                repl, repl, shard_spec, repl, repl,
+                repl, shard_spec, shard_spec, repl, repl,
             ),
             out_specs=shard_spec,
             check_vma=False,
         )
 
-        n_ = n
+        def pad_operands(b, c):
+            b_pad = jnp.pad(b, ((0, k_padded - k), (0, 0)))
+            if has_diag:
+                b_dia = jnp.pad(
+                    b, ((pad_lo, max(0, dia_rows_needed - k - pad_lo)), (0, 0))
+                )
+                b_win = b_dia[win_rows]  # (S, m_local + win_extra, n)
+            else:
+                b_win = jnp.zeros((S, 1, n), jnp.float32)
+            c_p = jnp.pad(c, ((0, m_slab - m), (0, 0)))
+            return b_pad, b_win, c_p.reshape(S, m_local, n)
 
         def step(res5, dense_d, b, c, alpha, beta):
-            b_pad = jnp.pad(b, ((0, k_padded - k), (0, n_padded - n_)))
-            b_dia = jnp.pad(
-                b,
-                ((pad_lo, max(0, dia_rows_needed - k - pad_lo)),
-                 (0, n_padded - n_)),
-            ) if has_diag else jnp.zeros((1, n_padded), jnp.float32)
-            c_p = jnp.pad(c, ((0, m_slab - m), (0, n_padded - n_)))
-            c_stacked = c_p.reshape(S, m_local, n_padded)
-            out = inner(res5, dense_d, b_pad, b_dia, c_stacked, alpha, beta)
-            return out.reshape(m_slab, n_padded)[:m, :n_]
+            b_pad, b_win, c_stacked = pad_operands(b, c)
+            out = inner(res5, dense_d, b_pad, b_win, c_stacked, alpha, beta)
+            return out.reshape(m_slab, n)[:m]
 
         self._jit = jax.jit(step)
 
         def _make_repeat(times):
             def rep(res5, dense_d, b, c, alpha, beta):
-                b_pad = jnp.pad(b, ((0, k_padded - k), (0, n_padded - n_)))
-                b_dia = jnp.pad(
-                    b,
-                    ((pad_lo, max(0, dia_rows_needed - k - pad_lo)),
-                     (0, n_padded - n_)),
-                ) if has_diag else jnp.zeros((1, n_padded), jnp.float32)
-                c_p = jnp.pad(c, ((0, m_slab - m), (0, n_padded - n_)))
-                c_stacked = c_p.reshape(S, m_local, n_padded)
+                b_pad, b_win, c_stacked = pad_operands(b, c)
 
                 def body(_, c_acc):
                     return inner(
-                        res5, dense_d, b_pad, b_dia, c_acc, alpha, beta
+                        res5, dense_d, b_pad, b_win, c_acc, alpha, beta
                     )
 
                 out = jax.lax.fori_loop(0, times, body, c_stacked)
-                return out.reshape(m_slab, n_padded)[:m, :n_]
+                return out.reshape(m_slab, n)[:m]
 
             return jax.jit(rep)
 
@@ -321,17 +278,19 @@ class ShardedHybridPlan:
 
     def __call__(self, b, alpha=1.0, beta=0.0, c=None) -> jax.Array:
         b, c = self._check_bc(b, beta, c)
-        return self._jit(
-            self._res5, self._dense, b, c,
-            jnp.float32(alpha), jnp.float32(beta),
-        )
+        with precision_scope(self.residue_config.precise):
+            return self._jit(
+                self._res5, self._dense, b, c,
+                scalar_f32(alpha), scalar_f32(beta),
+            )
 
     def repeat(self, b, alpha=1.0, beta=0.0, c=None, times: int = 1):
         """In-device rp_time chain over the full sharded hybrid step."""
         b, c = self._check_bc(b, beta, c)
         if times not in self._repeat_cache:
             self._repeat_cache[times] = self._make_repeat(times)
-        return self._repeat_cache[times](
-            self._res5, self._dense, b, c,
-            jnp.float32(alpha), jnp.float32(beta),
-        )
+        with precision_scope(self.residue_config.precise):
+            return self._repeat_cache[times](
+                self._res5, self._dense, b, c,
+                scalar_f32(alpha), scalar_f32(beta),
+            )

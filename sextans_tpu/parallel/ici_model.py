@@ -1,36 +1,30 @@
-"""ICI cost model for multi-chip SpMM plans.
+"""Per-shard byte model for multi-device SpMM plans.
 
-Single-chip autotuning picks kernels by an HBM/issue-cycle model
-(utils/autotune.py); this module adds the inter-chip terms so sharded
+Single-device autotuning ranks formats by the bytes their engine moves
+(utils/autotune.py); this module adds the cross-device terms so sharded
 plans can be *chosen* — not just executed — per matrix:
 
 * **row-shard** (ShardedSpmmPlan): C rows are produced where A rows live,
-  so the steady-state step has NO in-step collective. The ICI term is the
-  B operand reaching every chip: replicated placement costs one broadcast
-  of ``K x N x 4`` bytes (ring all-gather: each chip moves ``(S-1)/S`` of
-  it over its links). Compute runs at the SLOWEST shard's pace — the
-  per-shard cost model, not the global one, is what matters (the
-  ``nnz_imbalance`` ceiling of partition.py).
-* **K-shard** (ShardedSpmmPlanK): every chip computes a full-M partial and
-  ``psum_scatter`` folds them: a ring reduce-scatter moving
-  ``M_padded x N_padded x 4 * (S-1)/S`` bytes per chip.
+  so the steady-state step has NO in-step collective. The cross-device term
+  is the B operand reaching every device: replicated placement moves
+  ``(S-1)/S`` of ``K x N x 4`` bytes to each. Compute runs at the SLOWEST
+  shard's pace — the per-shard byte count, not the global one, is what
+  matters (the ``nnz_imbalance`` ceiling of partition.py).
+* **K-shard** (ShardedSpmmPlanK): every device computes a full-M partial
+  and ``psum_scatter`` folds them: a reduce-scatter moving
+  ``M_padded x N x 4 * (S-1)/S`` bytes per device.
 
-The model is validated structurally, not just numerically: the
-``collective_shapes`` helper extracts every collective op and its byte
-count from a compiled sharded step, and tests assert the model's byte
-terms equal the compiled program's (tests/test_ici_model.py) on the
-8-device virtual mesh — real multi-chip hardware is not available in this
-environment, so compiled-HLO shape agreement is the correctness bar, and
-the bandwidth constants below (public v5e/v5p figures) turn the byte
-counts into the predicted scaling curves of docs/MULTICHIP.md.
+Every device reaches every other at the same rate (NVLink, all to all), so
+the model counts bytes and carries no link topology. It is checked
+structurally: ``collective_shapes`` extracts every collective op and its
+byte count from a compiled sharded step, and tests assert the model's byte
+terms equal the compiled program's (tests/test_ici_model.py).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import re
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List
 
 import numpy as np
 
@@ -38,42 +32,16 @@ from sextans_tpu.format.coo import COOMatrix
 from sextans_tpu.utils.config import SpmmConfig, round_up
 
 __all__ = [
-    "ChipSpec",
-    "V5E",
-    "V5P",
     "collective_bytes",
     "collective_shapes",
     "choose_sharded_config",
-    "predict_sharded",
-    "scaling_curve",
 ]
-
-
-@dataclass(frozen=True)
-class ChipSpec:
-    """Per-chip bandwidth/compute figures for the analytic model.
-
-    ``ici_bw`` is ONE direction of one link in bytes/s; ``ici_links`` the
-    usable links per chip for a 1-D ring collective (2: both ring
-    directions). Public figures (jax-ml.github.io/scaling-book): v5e 2-D
-    torus 4.5e10 B/s/link/dir, HBM 8.1e11; v5p 3-D torus 9e10, HBM 2.765e12.
-    """
-
-    name: str
-    clock_hz: float
-    hbm_bw: float  # bytes/s
-    ici_bw: float  # bytes/s per link per direction
-    ici_links: int  # links a 1-D ring collective can drive concurrently
-
-
-V5E = ChipSpec("v5e", 0.94e9, 8.1e11, 4.5e10, 2)
-V5P = ChipSpec("v5p", 1.75e9, 2.765e12, 9.0e10, 2)
 
 
 def collective_bytes(
     mode: str, n_shards: int, m_padded: int, k_padded: int, n_padded: int
 ) -> Dict[str, float]:
-    """Per-chip ICI bytes of one sharded step, by collective.
+    """Per-device cross-device bytes of one sharded step, by collective.
 
     Keys name the collective the compiled step must contain ("" terms are
     placement/ingest costs with no in-step op). Matches what
@@ -137,7 +105,7 @@ def _per_shard_best(
     mode: str,
     base: SpmmConfig,
 ) -> List:
-    """Best (fmt, config, predicted cycles) per shard, shard-local stats."""
+    """Best (fmt, config, predicted bytes) per shard, shard-local stats."""
     from sextans_tpu.utils.autotune import choose_backend
 
     m, k = coo.shape
@@ -193,7 +161,7 @@ def choose_sharded_config(
     each shard's best family and takes a majority-vote format re-costed
     per shard, reporting the straggler.
 
-    Returns {"fmt", "config", "max_shard_cycles", "per_shard", "votes"}.
+    Returns {"fmt", "config", "max_shard_bytes", "per_shard", "votes"}.
     """
     per = _per_shard_best(coo, n, n_shards, mode, base)
     votes: Dict[str, int] = {}
@@ -208,78 +176,10 @@ def choose_sharded_config(
     return {
         "fmt": fmt,
         "config": worst.config,
-        "max_shard_cycles": float(
-            max(t.predicted_cost for t in candidates)
-        ),
+        # the step ends when the slowest shard does, whatever its format
+        "max_shard_bytes": float(max(t.predicted_cost for t in per)),
         "per_shard": [
-            {"fmt": t.fmt, "cycles": float(t.predicted_cost)} for t in per
+            {"fmt": t.fmt, "bytes": float(t.predicted_cost)} for t in per
         ],
         "votes": votes,
     }
-
-
-def predict_sharded(
-    coo: COOMatrix,
-    n_shards: int,
-    n: int = 512,
-    mode: str = "row",
-    chip: ChipSpec = V5P,
-    base: SpmmConfig = SpmmConfig(),
-    include_b_ingest: bool = False,
-) -> Dict:
-    """Predicted step time of a sharded plan: max-shard compute + ICI.
-
-    ``include_b_ingest``: count the row-shard B broadcast (serving flows
-    that change B per call; the rp_time repeat chain reuses B and pays it
-    once, so the default models the steady-state repeat step).
-    """
-    choice = choose_sharded_config(coo, n_shards, n=n, mode=mode, base=base)
-    compute_s = choice["max_shard_cycles"] / chip.clock_hz
-    m, k = coo.shape
-    tile_m = choice["config"].tile_m
-    m_padded = round_up(max(m, 1), max(n_shards * tile_m, 1))
-    k_padded = round_up(max(k, 1), max(n_shards * 128, 1))
-    n_padded = round_up(max(n, 1), 128)
-    terms = collective_bytes(mode, n_shards, m_padded, k_padded, n_padded)
-    ici_bw = chip.ici_bw * chip.ici_links
-    comm_s = 0.0
-    for name, nbytes in terms.items():
-        if name == "b_broadcast_ingest" and not include_b_ingest:
-            continue
-        comm_s += nbytes / ici_bw
-    return {
-        **choice,
-        "n_shards": n_shards,
-        "mode": mode,
-        "chip": chip.name,
-        "compute_s": compute_s,
-        "comm_s": comm_s,
-        "total_s": max(compute_s, comm_s) if mode == "row" else (
-            compute_s + comm_s
-        ),
-        "comm_bytes": terms,
-    }
-
-
-def scaling_curve(
-    coo: COOMatrix,
-    n: int = 512,
-    shard_counts: Sequence[int] = (1, 2, 4, 8),
-    mode: str = "row",
-    chip: ChipSpec = V5P,
-    base: SpmmConfig = SpmmConfig(),
-) -> List[Dict]:
-    """Predicted multi-chip scaling: one entry per shard count, with
-    speedup vs the 1-shard prediction. The docs/MULTICHIP.md curves come
-    from this function run over the benchmark suite classes."""
-    rows = []
-    base_s = None
-    for s in shard_counts:
-        r = predict_sharded(
-            coo, s, n=n, mode=mode if s > 1 else "row", chip=chip, base=base
-        )
-        if base_s is None:
-            base_s = r["total_s"]
-        r["speedup"] = base_s / r["total_s"] if r["total_s"] else float("inf")
-        rows.append(r)
-    return rows

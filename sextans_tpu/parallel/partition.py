@@ -1,11 +1,11 @@
 """Row-block partitioning of a sparse matrix across devices.
 
 The reference's parallel memory system is 29 dedicated HBM channels on one
-FPGA (link_config.ini:2-34). The TPU-native rebirth of that bandwidth
-parallelism is *chip* parallelism (SURVEY.md §2.4): A and C are 1-D
-row-block sharded over a device mesh, B is replicated, and each chip runs
-the single-chip kernel on its row slab — no cross-chip communication is
-needed for the row-sharded formulation (C rows live where A rows live).
+FPGA (link_config.ini:2-34). Here that bandwidth parallelism is *device*
+parallelism (SURVEY.md §2.4): A and C are 1-D row-block sharded over a
+device mesh, B is replicated, and each device runs the single-device engine
+on its row slab — no cross-device communication is needed for the
+row-sharded formulation (C rows live where A rows live).
 
 ``pack_sharded`` splits the rows into ``n_shards`` equal padded slabs, packs
 each independently, then pads every shard's group count to the common max so
@@ -54,7 +54,7 @@ class ShardedSpMatrix:
     # "mxu" (BKx128 slabs; qrow holds the slab index qm)
     fmt: str = "vpu"
     # nnz-balanced row mode: tile_assign[s, j] = global m-tile owned by
-    # shard s at local position j (None = contiguous slabs). The TPU mesh
+    # shard s at local position j (None = contiguous slabs). The mesh
     # analog of the reference's row%64 PE interleave
     # (src/sparse_helper.h:370): tiles are LPT-assigned by nnz so no shard
     # becomes the straggler on power-law matrices.
@@ -159,9 +159,8 @@ def _pad_shard_groups(p, ngroups: int):
 
 def _pad_shard_chunks_edge(p, nchunks: int):
     """Edge-format twin of _pad_shard_groups: all-padding chunks (zero vals,
-    zero meta — no row_end, so the register carry never flushes) extending
-    the last chunk's m-tile run."""
-    from sextans_tpu.format.pack_edge import PackedSpMatrixEdge
+    every slot marked pad) extending the last chunk's m-tile run."""
+    from sextans_tpu.format.pack_edge import PAD_BIT, PackedSpMatrixEdge
 
     cur = p.n_chunks
     if cur == nchunks:
@@ -176,7 +175,7 @@ def _pad_shard_chunks_edge(p, nchunks: int):
             [p.vals, np.zeros((extra, 1, E), np.float32)], axis=0
         ),
         meta=np.concatenate(
-            [p.meta, np.zeros((extra, 1, E), np.int32)], axis=0
+            [p.meta, np.full((extra, 1, E), PAD_BIT, np.int32)], axis=0
         ),
         chunk_mtile=np.concatenate([
             p.chunk_mtile[:cur],
@@ -370,7 +369,7 @@ def pack_sharded(
     """Split rows into ``n_shards`` equal-size slabs and pack each.
 
     ``fmt``: packed format family — "vpu" (8xBK blocks), "mxu"
-    (BKx128 dense slabs for the systolic-array kernel), or "edge".
+    (BKx128 dense slabs), "edge" or "ell".
 
     ``balance``: "contiguous" — shard s owns rows [s*m_local, (s+1)*m_local)
     (row-count balanced; on power-law matrices most nnz can land on a few

@@ -1,11 +1,12 @@
 """Multi-chip SpMM via shard_map over a device mesh.
 
-The TPU-native replacement for the reference's single-FPGA HBM-channel
+The multi-device replacement for the reference's single-FPGA HBM-channel
 parallelism (SURVEY.md §2.4): A and C are 1-D row-block sharded over the
-mesh's ``"x"`` axis (each chip owns a contiguous row slab), B is replicated,
-and every chip runs the single-chip kernel on its slab. Row-sharded SpMM
-needs **no** inter-chip collectives in the forward product — C rows are
-produced where A rows live; XLA inserts the B broadcast on ICI.
+mesh's ``"x"`` axis (each device owns a contiguous row slab), B is
+replicated, and every device runs the single-device engine on its slab.
+Row-sharded SpMM needs **no** cross-device collectives in the forward
+product — C rows are produced where A rows live; XLA inserts the B
+broadcast.
 
 A K-sharded variant with ``psum``/reduce-scatter of C partials is provided
 for matrices whose K dimension dominates (``spmm_sharded_k``).
@@ -20,8 +21,13 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from sextans_tpu.ops.engines import (
+    precision_scope,
+    resolve_backend,
+    run_padded,
+    scalar_f32,
+)
 from sextans_tpu.parallel.partition import ShardedSpMatrix
-from sextans_tpu.utils.config import round_up
 
 __all__ = [
     "spmm_sharded",
@@ -38,87 +44,18 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "x") -> Mesh:
     return Mesh(np.array(devs[:n]), (axis,))
 
 
-def make_local_kernel(cfg, backend: str, tile_n: int, m_local: int):
-    """Per-shard kernel dispatch shared by the row-sharded plans.
+def make_local_kernel(cfg, backend: str, m_local: int):
+    """Per-shard engine call shared by the row-sharded plans.
 
     Returns ``run(vals, qrow, bcol, gmt, gkw, b_pad, c_loc, alpha, beta)
-    -> (m_local, n_padded)`` operating on ONE shard's (unstacked) arrays —
-    the single-chip engine switch of ops/plan.py reduced to the padded
-    entry points, used inside shard_map by ShardedSpmmPlan and
-    ShardedHybridPlan (parallel/hybrid_sharded.py)."""
+    -> (m_local, n)`` operating on ONE shard's (unstacked) arrays, used
+    inside shard_map by ShardedSpmmPlan and ShardedHybridPlan
+    (parallel/hybrid_sharded.py)."""
 
     def run(vals, qrow, bcol, gmt, gkw, b_pad, c_loc, alpha, beta):
-        if backend in ("ell", "ell_pallas", "ell_pallas_interpret"):
-            # the shard's slot grid carries virtual hub rows beyond the
-            # m_local C slab: pad C in, slice the fold-resolved rows out
-            m_pad_l = vals.shape[0]
-            c_pad = jnp.pad(c_loc, ((0, m_pad_l - m_local), (0, 0)))
-            if backend == "ell":
-                from sextans_tpu.ops.spmm_ell_xla import spmm_ell_padded
-
-                out = spmm_ell_padded(
-                    vals, qrow, bcol, b_pad, c_pad, alpha, beta,
-                    m_block=cfg.tile_m, m_base=m_local,
-                )
-            else:
-                from sextans_tpu.ops.spmm_ell_pallas import (
-                    spmm_ell_gather_padded,
-                )
-
-                out = spmm_ell_gather_padded(
-                    vals, qrow, bcol, b_pad, c_pad, alpha, beta,
-                    m_block=cfg.tile_m if cfg.tile_m % 256 else 256,
-                    m_base=m_local,
-                    interpret=(backend == "ell_pallas_interpret"),
-                )
-            return out[:m_local]
-        kernel_kwargs = dict(
-            tile_m=cfg.tile_m,
-            window_k=cfg.window_k,
-            block_k=cfg.block_k,
-            group_blocks=cfg.group_blocks,
-        )
-        if backend == "xla":
-            from sextans_tpu.ops.spmm_xla import spmm_xla_padded
-
-            return spmm_xla_padded(
-                vals, qrow, bcol, gmt, gkw, b_pad, c_loc, alpha, beta,
-                **kernel_kwargs,
-            )
-        if backend in ("edge", "edge_interpret"):
-            from sextans_tpu.ops.spmm_edge_pallas import spmm_edge_padded
-
-            return spmm_edge_padded(
-                vals, qrow, gmt, gkw, b_pad, c_loc, alpha, beta,
-                tile_m=cfg.tile_m,
-                window_k=cfg.window_k,
-                edge_chunk=cfg.edge_chunk,
-                edge_lanes=cfg.edge_lanes,
-                tile_n=tile_n,
-                interpret=(backend == "edge_interpret"),
-            )
-        if backend in ("mxu", "mxu_interpret"):
-            from sextans_tpu.ops.spmm_mxu_pallas import spmm_mxu_padded
-
-            return spmm_mxu_padded(
-                vals, qrow, bcol, gmt, gkw, b_pad, c_loc, alpha, beta,
-                **kernel_kwargs,
-                tile_n=tile_n,
-                interpret=(backend == "mxu_interpret"),
-                unroll=cfg.chunk_unroll,
-                precise=cfg.precise,
-            )
-        from sextans_tpu.ops.spmm_pallas import spmm_pallas_padded
-
-        return spmm_pallas_padded(
-            vals, qrow, bcol, gmt, gkw, b_pad, c_loc, alpha, beta,
-            **kernel_kwargs,
-            tile_n=tile_n,
-            interpret=(backend == "pallas_interpret"),
-            n_acc=cfg.n_acc,
-            chunk_unroll=cfg.chunk_unroll,
-            precise=cfg.precise,
-        )
+        # an ELL shard's virtual hub rows start after its m_local real rows
+        return run_padded(backend, cfg, (vals, qrow, bcol, gmt, gkw), b_pad,
+                          c_loc, alpha, beta, m_base=m_local)
 
     return run
 
@@ -148,44 +85,13 @@ class ShardedSpmmPlan:
                 f"{mesh.devices.size} devices"
             )
         fmt = getattr(sharded, "fmt", "vpu")
-        if backend == "auto":
-            on_tpu = jax.devices()[0].platform == "tpu"
-            if fmt == "mxu":
-                backend = "mxu" if on_tpu else "mxu_interpret"
-            elif fmt == "edge":
-                backend = "edge" if on_tpu else "edge_interpret"
-            elif fmt == "ell":
-                # TPU: the Pallas chunk-gather engine (XLA's take
-                # serializes there); elsewhere the XLA gather engine
-                backend = "ell_pallas" if on_tpu else "ell"
-            else:
-                backend = "pallas" if on_tpu else "xla"
-        if (
-            (fmt == "mxu") != (backend in ("mxu", "mxu_interpret"))
-            or (fmt == "edge") != (backend in ("edge", "edge_interpret"))
-            or (fmt == "ell")
-            != (backend in ("ell", "ell_pallas", "ell_pallas_interpret"))
-        ):
-            raise ValueError(
-                f"backend {backend!r} does not match sharded format {fmt!r}"
-            )
+        cfg = sharded.config
+        backend = resolve_backend(fmt, backend, precise=cfg.precise)
         self.backend = backend
         self.mesh = mesh
         self.sharded = sharded
         self.m, self.k = sharded.m, sharded.k
         self.n = n
-        cfg = sharded.config
-        if backend in ("ell_pallas", "ell_pallas_interpret"):
-            self.tile_n = next(
-                (c for c in (128, 256, 512, 1024) if n <= c),
-                round_up(n, 1024),
-            )
-        elif fmt == "ell":
-            # gather engine: no lane-tile constraint, no K windows
-            self.tile_n = n
-        else:
-            self.tile_n = cfg.resolve_tile_n(n)
-        self.n_padded = round_up(n, self.tile_n)
 
         axis = mesh.axis_names[0]
         shard_spec = P(axis)
@@ -193,11 +99,10 @@ class ShardedSpmmPlan:
         m, k = self.m, self.k
         m_padded = sharded.m_padded
         k_padded = self.k if fmt == "ell" else sharded.k_padded
-        n_, n_padded = n, self.n_padded
+        n_padded = n
         S, m_local = sharded.n_shards, sharded.m_local
-        tile_n = self.tile_n
 
-        run_local = make_local_kernel(cfg, backend, tile_n, m_local)
+        run_local = make_local_kernel(cfg, backend, m_local)
 
         def local_step(vals, qrow, bcol, gmt, gkw, b_pad, c_loc, alpha, beta):
             # shard_map hands each device its (1, ...) slice — drop the axis.
@@ -248,11 +153,11 @@ class ShardedSpmmPlan:
                 return out.reshape(m_padded, n_padded)
 
         def step(vals, qrow, bcol, gmt, gkw, b, c, alpha, beta):
-            b_p = jnp.pad(b, ((0, k_padded - k), (0, n_padded - n_)))
-            c_p = jnp.pad(c, ((0, m_padded - m), (0, n_padded - n_)))
+            b_p = jnp.pad(b, ((0, k_padded - k), (0, 0)))
+            c_p = jnp.pad(c, ((0, m_padded - m), (0, 0)))
             c_stacked = to_stacked(c_p)
             out = inner(vals, qrow, bcol, gmt, gkw, b_p, c_stacked, alpha, beta)
-            return from_stacked(out)[:m, :n_]
+            return from_stacked(out)[:m]
 
         self._jit = jax.jit(step)
 
@@ -261,24 +166,21 @@ class ShardedSpmmPlan:
         # cannot overlap; used by the sharded timing harness.
         def _make_repeat(times):
             def rep(vals, qrow, bcol, gmt, gkw, b, c, alpha, beta):
-                b_p = jnp.pad(b, ((0, k_padded - k), (0, n_padded - n_)))
-                c_p = jnp.pad(c, ((0, m_padded - m), (0, n_padded - n_)))
+                b_p = jnp.pad(b, ((0, k_padded - k), (0, 0)))
+                c_p = jnp.pad(c, ((0, m_padded - m), (0, 0)))
                 c_stacked = to_stacked(c_p)
 
                 def body(_, c_acc):
-                    # pure-XLA backends: tie B to the carry so LICM cannot
-                    # hoist the loop-invariant A@B out of the timing loop
-                    # (same trick as ops/plan.py; Pallas calls are opaque)
-                    if backend in ("xla", "ell"):
-                        b_i = b_p + c_acc[0, 0:1, 0:1] * jnp.float32(1e-38)
-                    else:
-                        b_i = b_p
+                    # tie B to the carry so loop-invariant code motion
+                    # cannot hoist A @ B out of the timing loop (same trick
+                    # as ops/plan.py)
+                    b_i = b_p + c_acc[0, 0:1, 0:1] * jnp.float32(1e-38)
                     return inner(
                         vals, qrow, bcol, gmt, gkw, b_i, c_acc, alpha, beta
                     )
 
                 out = jax.lax.fori_loop(0, times, body, c_stacked)
-                return from_stacked(out)[:m, :n_]
+                return from_stacked(out)[:m]
 
             return jax.jit(rep)
 
@@ -309,9 +211,10 @@ class ShardedSpmmPlan:
 
     def __call__(self, b, alpha=1.0, beta=0.0, c=None) -> jax.Array:
         b, c = self._check_bc(b, beta, c)
-        return self._jit(
-            *self._dev, b, c, jnp.float32(alpha), jnp.float32(beta)
-        )
+        with precision_scope(self.sharded.config.precise):
+            return self._jit(
+                *self._dev, b, c, scalar_f32(alpha), scalar_f32(beta)
+            )
 
     def repeat(self, b, alpha=1.0, beta=0.0, c=None, times: int = 1) -> jax.Array:
         """Run the sharded kernel ``times`` times in-device (one dispatch),
@@ -319,13 +222,14 @@ class ShardedSpmmPlan:
         b, c = self._check_bc(b, beta, c)
         if times not in self._repeat_cache:
             self._repeat_cache[times] = self._make_repeat(times)
-        return self._repeat_cache[times](
-            *self._dev, b, c, jnp.float32(alpha), jnp.float32(beta)
-        )
+        with precision_scope(self.sharded.config.precise):
+            return self._repeat_cache[times](
+                *self._dev, b, c, scalar_f32(alpha), scalar_f32(beta)
+            )
 
 
 class ShardedSpmmPlanK:
-    """Device-resident K-sharded executor with ICI reduce-scatter.
+    """Device-resident K-sharded executor with a reduce-scatter.
 
     The plan twin of :func:`spmm_sharded_k`: uploads the stacked column-slab
     shards to the mesh ONCE and jit-caches the step, so steady-state calls
@@ -333,7 +237,7 @@ class ShardedSpmmPlanK:
     call — unusable for steady-state multi-chip serving).
 
     Each chip computes a full-M partial product over its K slab, then
-    ``psum_scatter`` sums partials over ICI while scattering C row slabs to
+    ``psum_scatter`` sums partials across devices while scattering C row slabs to
     their owners; the alpha/beta epilogue runs on the owning chip.
     """
 
@@ -354,131 +258,31 @@ class ShardedSpmmPlanK:
                 f"{mesh.devices.size} devices"
             )
         fmt = getattr(sharded, "fmt", "vpu")
-        if backend == "auto":
-            on_tpu = jax.devices()[0].platform == "tpu"
-            if fmt == "mxu":
-                backend = "mxu" if on_tpu else "mxu_interpret"
-            elif fmt == "edge":
-                backend = "edge" if on_tpu else "edge_interpret"
-            elif fmt == "ell":
-                backend = "ell_pallas" if on_tpu else "ell"
-            else:
-                backend = "pallas" if on_tpu else "xla"
-        if (
-            (fmt == "mxu") != (backend in ("mxu", "mxu_interpret"))
-            or (fmt == "edge") != (backend in ("edge", "edge_interpret"))
-            or (fmt == "ell")
-            != (backend in ("ell", "ell_pallas", "ell_pallas_interpret"))
-        ):
-            raise ValueError(
-                f"backend {backend!r} does not match sharded format {fmt!r}"
-            )
+        cfg = sharded.config
+        backend = resolve_backend(fmt, backend, precise=cfg.precise)
         self.backend = backend
         self.mesh = mesh
         self.sharded = sharded
         self.m, self.k = sharded.m, sharded.k
         self.n = n
-        cfg = sharded.config
-        if backend in ("ell_pallas", "ell_pallas_interpret"):
-            self.tile_n = next(
-                (c for c in (128, 256, 512, 1024) if n <= c),
-                round_up(n, 1024),
-            )
-        elif fmt == "ell":
-            self.tile_n = n
-        else:
-            self.tile_n = cfg.resolve_tile_n(n)
-        self.n_padded = round_up(n, self.tile_n)
 
         axis = mesh.axis_names[0]
         m, k = self.m, self.k
         S = sharded.n_shards
         m_padded = sharded.m_padded  # divisible by S by construction
         k_local = sharded.k_padded
-        n_, n_padded = n, self.n_padded
-        tile_n = self.tile_n
-
-        kernel_kwargs = dict(
-            tile_m=cfg.tile_m,
-            window_k=cfg.window_k,
-            block_k=cfg.block_k,
-            group_blocks=cfg.group_blocks,
-        )
+        n_padded = n
 
         def local_step(vals, qrow, bcol, gmt, gkw, b_loc, c_loc, alpha, beta):
-            vals, qrow, bcol = vals[0], qrow[0], bcol[0]
-            gmt, gkw, b_loc, c_loc = gmt[0], gkw[0], b_loc[0], c_loc[0]
-            zeros_c = jnp.zeros((m_padded, b_loc.shape[1]), dtype=jnp.float32)
+            dev = (vals[0], qrow[0], bcol[0], gmt[0], gkw[0])
+            b_loc, c_loc = b_loc[0], c_loc[0]
             one, zero = jnp.float32(1.0), jnp.float32(0.0)
-            if backend in ("ell", "ell_pallas", "ell_pallas_interpret"):
-                # each chip gathers from its own K slab of B; virtual hub
-                # rows beyond the global padded M are folded before the
-                # reduce-scatter (the slice drops them)
-                zeros_l = jnp.zeros(
-                    (vals.shape[0], b_loc.shape[1]), dtype=jnp.float32
-                )
-                if backend == "ell":
-                    from sextans_tpu.ops.spmm_ell_xla import spmm_ell_padded
-
-                    partial_ab = spmm_ell_padded(
-                        vals, qrow, bcol, b_loc, zeros_l, one, zero,
-                        m_block=cfg.tile_m, m_base=m_padded, with_c=False,
-                    )[:m_padded]
-                else:
-                    from sextans_tpu.ops.spmm_ell_pallas import (
-                        spmm_ell_gather_padded,
-                    )
-
-                    partial_ab = spmm_ell_gather_padded(
-                        vals, qrow, bcol, b_loc, zeros_l, one, zero,
-                        m_block=cfg.tile_m if cfg.tile_m % 256 else 256,
-                        m_base=m_padded, with_c=False,
-                        interpret=(backend == "ell_pallas_interpret"),
-                    )[:m_padded]
-            elif backend == "xla":
-                from sextans_tpu.ops.spmm_xla import spmm_xla_padded
-
-                partial_ab = spmm_xla_padded(
-                    vals, qrow, bcol, gmt, gkw, b_loc, zeros_c, one, zero,
-                    **kernel_kwargs,
-                )
-            elif backend in ("edge", "edge_interpret"):
-                from sextans_tpu.ops.spmm_edge_pallas import spmm_edge_padded
-
-                partial_ab = spmm_edge_padded(
-                    vals, qrow, gmt, gkw, b_loc, zeros_c, one, zero,
-                    tile_m=cfg.tile_m,
-                    window_k=cfg.window_k,
-                    edge_chunk=cfg.edge_chunk,
-                    edge_lanes=cfg.edge_lanes,
-                    tile_n=tile_n,
-                    interpret=(backend == "edge_interpret"),
-                    with_c=False,
-                )
-            elif backend in ("mxu", "mxu_interpret"):
-                from sextans_tpu.ops.spmm_mxu_pallas import spmm_mxu_padded
-
-                partial_ab = spmm_mxu_padded(
-                    vals, qrow, bcol, gmt, gkw, b_loc, zeros_c, one, zero,
-                    **kernel_kwargs,
-                    tile_n=tile_n,
-                    interpret=(backend == "mxu_interpret"),
-                    unroll=cfg.chunk_unroll,
-                    precise=cfg.precise,
-                    with_c=False,
-                )
-            else:
-                from sextans_tpu.ops.spmm_pallas import spmm_pallas_padded
-
-                partial_ab = spmm_pallas_padded(
-                    vals, qrow, bcol, gmt, gkw, b_loc, zeros_c, one, zero,
-                    **kernel_kwargs,
-                    tile_n=tile_n,
-                    interpret=(backend == "pallas_interpret"),
-                    n_acc=cfg.n_acc,
-                    chunk_unroll=cfg.chunk_unroll,
-                    with_c=False,
-                )
+            # each chip's full-M partial over its own K slab of B; ELL
+            # virtual hub rows beyond the global padded M are folded in
+            partial_ab = run_padded(
+                backend, cfg, dev, b_loc, jnp.zeros((m_padded, n), jnp.float32),
+                one, zero, m_base=m_padded, with_c=False,
+            )
             slab = jax.lax.psum_scatter(
                 partial_ab, axis, scatter_dimension=0, tiled=True
             )
@@ -493,24 +297,24 @@ class ShardedSpmmPlanK:
             check_vma=False,
         )
 
+        def stack_operands(b, c):
+            b_p = jnp.pad(b, ((0, S * k_local - k), (0, 0)))
+            c_p = jnp.pad(c, ((0, m_padded - m), (0, 0)))
+            return (b_p.reshape(S, k_local, n_padded),
+                    c_p.reshape(S, m_padded // S, n_padded))
+
         def step(vals, qrow, bcol, gmt, gkw, b, c, alpha, beta):
-            b_p = jnp.pad(b, ((0, S * k_local - k), (0, n_padded - n_)))
-            b_stacked = b_p.reshape(S, k_local, n_padded)
-            c_p = jnp.pad(c, ((0, m_padded - m), (0, n_padded - n_)))
-            c_stacked = c_p.reshape(S, m_padded // S, n_padded)
+            b_stacked, c_stacked = stack_operands(b, c)
             out = inner(
                 vals, qrow, bcol, gmt, gkw, b_stacked, c_stacked, alpha, beta
             )
-            return out.reshape(m_padded, n_padded)[:m, :n_]
+            return out.reshape(m_padded, n_padded)[:m]
 
         self._jit = jax.jit(step)
 
         def _make_repeat(times):
             def rep(vals, qrow, bcol, gmt, gkw, b, c, alpha, beta):
-                b_p = jnp.pad(b, ((0, S * k_local - k), (0, n_padded - n_)))
-                b_stacked = b_p.reshape(S, k_local, n_padded)
-                c_p = jnp.pad(c, ((0, m_padded - m), (0, n_padded - n_)))
-                c_stacked = c_p.reshape(S, m_padded // S, n_padded)
+                b_stacked, c_stacked = stack_operands(b, c)
 
                 def body(_, c_acc):
                     return inner(
@@ -519,7 +323,7 @@ class ShardedSpmmPlanK:
                     )
 
                 out = jax.lax.fori_loop(0, times, body, c_stacked)
-                return out.reshape(m_padded, n_padded)[:m, :n_]
+                return out.reshape(m_padded, n_padded)[:m]
 
             return jax.jit(rep)
 
@@ -551,17 +355,19 @@ class ShardedSpmmPlanK:
 
     def __call__(self, b, alpha=1.0, beta=0.0, c=None) -> jax.Array:
         b, c = self._check_bc(b, beta, c)
-        return self._jit(
-            *self._dev, b, c, jnp.float32(alpha), jnp.float32(beta)
-        )
+        with precision_scope(self.sharded.config.precise):
+            return self._jit(
+                *self._dev, b, c, scalar_f32(alpha), scalar_f32(beta)
+            )
 
     def repeat(self, b, alpha=1.0, beta=0.0, c=None, times: int = 1) -> jax.Array:
         b, c = self._check_bc(b, beta, c)
         if times not in self._repeat_cache:
             self._repeat_cache[times] = self._make_repeat(times)
-        return self._repeat_cache[times](
-            *self._dev, b, c, jnp.float32(alpha), jnp.float32(beta)
-        )
+        with precision_scope(self.sharded.config.precise):
+            return self._repeat_cache[times](
+                *self._dev, b, c, scalar_f32(alpha), scalar_f32(beta)
+            )
 
 
 def spmm_sharded(
@@ -605,11 +411,11 @@ def spmm_sharded_k(
     mesh: Optional[Mesh] = None,
     backend: str = "auto",
 ) -> jax.Array:
-    """K-sharded C = alpha*A@B + beta*C with an ICI reduce-scatter.
+    """K-sharded C = alpha*A@B + beta*C with a reduce-scatter.
 
     A is column-slab sharded and B row-slab sharded along K; each chip
     computes a full-M partial product, then ``psum_scatter`` sums the
-    partials over ICI while scattering C rows — the chip-parallel rebirth of
+    partials across devices while scattering C rows — the device-parallel rebirth of
     the reference's 8-channel A / 4-channel B HBM streaming
     (link_config.ini:2-34). The alpha/beta epilogue is applied after the
     reduction on the C-owning chip.

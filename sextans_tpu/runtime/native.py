@@ -112,7 +112,7 @@ def available_mxu() -> bool:
 
 
 def pack_mxu_native(rows, cols, vals, m, k, config):
-    """Native MXU dense-slab pack. Returns
+    """Native dense-slab pack. Returns
     (vals_packed, qm, bcol, group_mtile, group_kwin, (nb, njobs, nempty)) —
     bit-identical to the NumPy pack_mxu arrays."""
     lib = _try_load()
@@ -248,7 +248,7 @@ def pack_edge_native(rows, cols, vals, m, k, config):
         config.tile_m,
         config.window_k,
         config.edge_chunk,
-        config.edge_lanes,
+        1,  # row runs unpadded: the engine scatters each edge on its own
     )
     if not h:
         raise RuntimeError("sx_pack_plan_edge rejected parameters")

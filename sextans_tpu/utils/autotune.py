@@ -1,22 +1,24 @@
-"""Autotuner: pick pack/kernel parameters per sparsity pattern.
+"""Autotuner: pick the pack format and its parameters per sparsity pattern.
 
 The reference fixes its architecture at bitstream-build time
 (src/sextans.h:7-15) and eats load imbalance as scheduler bubbles
 (src/sparse_helper.h:390-400). Here the equivalent knobs are runtime
 parameters, so we pick them per matrix:
 
-* **analytic mode** (:func:`choose_config`) — exact block counts for each
-  candidate ``block_k`` are computed with one O(nnz) pass each (no packing),
-  and a simple VPU cost model picks the config minimizing modeled kernel
-  time. Zero device time needed.
+* **analytic mode** (:func:`choose_backend` and the per-format choosers) —
+  exact block counts for each candidate geometry from one O(nnz) pass each
+  (no packing), ranked by the bytes the format's engine moves per call
+  (``predicted_cost`` is that byte count). No device time and no device
+  rates: the engines are bound by memory traffic, so bytes order the
+  candidates.
 * **measured mode** (:func:`autotune`) — packs the top analytic candidates
-  and times the real kernel on device, returning the fastest plan.
+  and times the real engine on the device, returning the fastest plan.
 
-Cost model (per block, VPU micro-kernel in ops/spmm_pallas.py):
-``cost ~ C_FIXED + C_FMA * block_k`` vector-op slots per (block, tile_n
-panel), plus a per-group overhead. Minimizing
-``n_blocks(bk) * (C_FIXED + C_FMA*bk)`` trades padding waste (large bk,
-low fill) against per-block overhead (small bk, many blocks).
+Byte model of the plain-XLA block engines (ops/spmm_xla.py), per block of
+``rows x bk`` values at width n: the packed values, the gathered B rows
+(written and read once: ``2 * bk * 4n``) and the per-block result (written,
+read by the scatter, and the accumulator read-modify-write:
+``4 * rows * 4n``).
 """
 
 from __future__ import annotations
@@ -31,38 +33,41 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from sextans_tpu.format.coo import COOMatrix
-from sextans_tpu.utils.config import SpmmConfig, cdiv
+from sextans_tpu.utils.config import SpmmConfig
 
 __all__ = [
     "choose_config",
     "choose_config_mxu",
     "choose_config_edge",
+    "choose_config_ell",
     "choose_backend",
     "autotune",
     "block_counts",
     "block_counts_mxu",
+    "block_bytes",
+    "hybrid_cost",
     "TuneResult",
     "ConfigStore",
 ]
 
 logger = logging.getLogger("sextans_tpu.autotune")
 
-# Cost-model constants, calibrated against v5e measurements (docs/BENCHMARKING.md):
-# scalar/addressing cycles per block visit (a visit = block x N-panel)
-S_FIXED = 5.0
-# Scalar steering is per-BLOCK while vector work is per-vreg-chunk of
-# 128/bk blocks, so small-bk configs pay ~S_BLOCK/bk extra per visit.
-# Round-2 calibration: bk=1 measured ~107 cycles/visit (webgraph residue),
-# bk=2 ~80 (r1 webgraph), bk=8 ~26 (nasa full-unroll).
-S_BLOCK = 100.0
-# vector cycles per visit ~ (bk + C_VEC) * (tile_n/128) / VREGS_PER_CYCLE
-C_VEC = 3.0
-VREGS_PER_CYCLE = 4.0  # VPU ALUs retire ~4 (8,128) ops/cycle
-# Per grid step (group x panel): pipeline + epilogue amortization.
-C_GROUP = 600.0
-# HBM bytes moved per cycle (~800 GB/s at ~0.94 GHz): charges the B-window
-# refetch per (M-tile, K-window) job, C in/out, and the A re-stream per panel.
-BYTES_PER_CYCLE = 850.0
+# Packed-A inflation ceiling for dense-slab candidates (bytes of packed vals
+# per nonzero; CSR is ~8): past it the pack is a host-memory and upload
+# problem before it is an engine-time one.
+MXU_MAX_BYTES_PER_NNZ = 512.0
+
+
+def block_bytes(n_blocks: int, rows: int, bk: int, n: int) -> float:
+    """Bytes one block-engine call moves for ``n_blocks`` blocks of
+    ``rows x bk`` values at width ``n`` (module docstring)."""
+    per_block = 4.0 * rows * bk + 8.0 + 4.0 * n * (2 * bk + 4 * rows)
+    return n_blocks * per_block
+
+
+def _dense_io_bytes(m: int, n: int) -> float:
+    """C read and output write."""
+    return 2.0 * m * n * 4
 
 
 def _tune_cache(coo) -> dict:
@@ -102,7 +107,7 @@ def block_counts(
 
 def job_counts(coo: COOMatrix, tile_m: int, window_k: int) -> int:
     """Exact number of (M-tile, K-window) jobs with nonzeros — each one costs
-    a B-window fetch (the window_k x tile_n VMEM fill)."""
+    one more partly filled group of blocks."""
     cache = _tune_cache(coo)
     key = ("jc", tile_m, window_k)
     if key not in cache:
@@ -113,32 +118,13 @@ def job_counts(coo: COOMatrix, tile_m: int, window_k: int) -> int:
     return cache[key]
 
 
-# Candidate gate for the analytic choosers. Tracks the MEASURED scoped-VMEM
-# envelope (utils/config.VMEM_BYTES = 98 MiB, bisected on v5e round 3 —
-# docs/DESIGN.md §8) with 2 MiB slack so a proposed config never dies at the
-# kernel guard. The old 14 MiB value predated the bisection and silently
-# excluded the big-tile/big-window configs (the ldoor-class B-restream
-# lever, edge wk=32768) from every race.
-VMEM_BUDGET = 96 * 1024 * 1024
-
-
-def vmem_estimate(cfg: SpmmConfig, tile_n: int) -> int:
-    """Approximate kernel VMEM footprint in bytes (double-buffered inputs)."""
-    acc = cfg.n_acc * cfg.tile_m * tile_n
-    cio = 4 * cfg.tile_m * tile_n  # C_in + out, double-buffered
-    bwin = 2 * cfg.window_k * tile_n
-    vals = 2 * 8 * cfg.group_blocks * cfg.block_k
-    return 4 * (acc + cio + bwin + vals)
-
-
 @dataclass
 class TuneResult:
     config: SpmmConfig
     predicted_cost: float
     measured_ms: Optional[float] = None
-    # packed format / backend family this config targets:
-    # "vpu" -> format/pack.py + ops/spmm_pallas.py (backend "pallas"/"xla")
-    # "mxu" -> format/pack_mxu.py + ops/spmm_mxu_pallas.py (backend "mxu")
+    # packed format this config targets (ops/engines.py): "vpu", "mxu",
+    # "edge" or "ell"
     fmt: str = "vpu"
 
 
@@ -147,87 +133,36 @@ def choose_config(
     base: SpmmConfig = SpmmConfig(),
     block_ks: Sequence[int] = (1, 2, 4, 8),
     tile_ms: Sequence[int] = (512, 1024, 2048, 4096),
-    tile_ns: Sequence[int] = (128, 256, 512),
     window_ks: Sequence[int] = (2048, 4096, 8192, 16384),
     top: int = 1,
     n: int = 512,
 ) -> List[TuneResult]:
-    """Analytic config choice over (block_k, tile_m, tile_n); best first.
+    """Analytic config choice for the 8 x block_k block format; best first.
 
-    Modeled total kernel cycles for an (M,K) x (K,N) product with
-    panels = N / tile_n:
-
-      blocks * [ S_FIXED * panels                      — scalar/addressing
-                 + (bk + C_VEC) * N/128 / VREGS_PER_CYCLE ]   — vector work
-      + groups * C_GROUP * panels                      — grid-step overhead
-      + [ jobs * window_k * 4 * N                      — B window refetches
-          + 2 * M * N * 4                              — C in + out
-          + A_bytes * panels ] / BYTES_PER_CYCLE       — A re-stream per panel
-
-    Group padding (each job padded to a multiple of group_blocks) is modeled
-    as half a group per job. Candidates exceeding the VMEM budget are
-    dropped; tile_n is chosen jointly so large tile_m (fewer B refetches)
-    remains reachable at small tile_n.
-    """
+    Cost is :func:`block_bytes` over the padded block count (each job is
+    padded to a multiple of ``group_blocks``, modeled as half a group per
+    job) plus C in/out. Small bk pads less; large bk gathers each B row for
+    fewer per-block results."""
     m = max(coo.shape[0], 1)
     counts = block_counts(coo, block_ks)
     results = []
     for tm, wk in [(a, b) for a in tile_ms for b in window_ks]:
         njobs = job_counts(coo, tm, wk)
         for bk, nb in counts.items():
+            # group_blocks: a multiple of 128 // bk (the format's value-lane
+            # chunk), sized near the average job, at most 16 chunks
             chunk = max(128 // bk, 1)
-            cfg0 = base.with_(block_k=bk, tile_m=tm, window_k=wk)
-            # Size groups near the average job, capped at 16 chunks (= 2048
-            # value lanes): in-session A/B on v5e showed gb past that cliff
-            # (cant-like bk=4: 415 GFLOPS at 16 chunks vs 89 at 32).
             avg_job = max(1, nb // max(njobs, 1))
             gb = chunk
             while gb * 2 <= min(2 * avg_job, 16 * chunk):
                 gb *= 2
-            cfg = cfg0.with_(group_blocks=gb)
+            cfg = base.with_(block_k=bk, tile_m=tm, window_k=wk,
+                             group_blocks=gb)
             padded_blocks = nb + njobs * gb // 2
-            ngroups = max(1, cdiv(padded_blocks, gb))
-            a_bytes = padded_blocks * (32 * bk + 8)
-            for tn in tile_ns:
-                if tn > ((n + 127) // 128) * 128:
-                    continue
-                if vmem_estimate(cfg, tn) > VMEM_BUDGET:
-                    continue
-                panels = max(1, cdiv(n, tn))
-                cost = (
-                    padded_blocks
-                    * (
-                        (S_FIXED + S_BLOCK / bk) * panels
-                        + (bk + C_VEC) * (n / 128.0) / VREGS_PER_CYCLE
-                    )
-                    + ngroups * C_GROUP * panels
-                    + (
-                        njobs * cfg.window_k * 4 * n
-                        + 2 * m * n * 4
-                        + a_bytes * panels
-                    )
-                    / BYTES_PER_CYCLE
-                )
-                results.append(TuneResult(cfg.with_(tile_n=tn), cost))
-    if not results:  # nothing fits VMEM: smallest safe fallback
-        return [
-            TuneResult(
-                base.with_(tile_m=min(tile_ms), tile_n=128), float("inf")
-            )
-        ]
+            cost = block_bytes(padded_blocks, 8, bk, n) + _dense_io_bytes(m, n)
+            results.append(TuneResult(cfg, cost))
     results.sort(key=lambda r: r.predicted_cost)
     return results[:top]
-
-
-# Measured on v5e (nasa4704 probes, round 2): one MXU block visit — dynamic
-# B-slab slice + (bk,128)x(bk,tile_n) HIGHEST-precision contraction + slab
-# accumulate — costs ~160-220 cycles per (block, N-panel), near-independent
-# of bk (weight-load / issue bound). Deep blocks therefore win whenever the
-# A-stream DMA they inflate stays under the per-visit saving.
-MXU_BLOCK_CYCLES = 190.0
-# Packed-A inflation ceiling for MXU candidates (bytes of packed vals per
-# nonzero; CSR is ~8, the nasa bk=128 pack is ~127).
-MXU_MAX_BYTES_PER_NNZ = 512.0
 
 
 def block_counts_mxu(
@@ -254,21 +189,16 @@ def choose_config_mxu(
     base: SpmmConfig = SpmmConfig(),
     block_ks: Sequence[int] = (32, 64, 128),
     tile_ms: Sequence[int] = (512, 1024, 2048, 4096),
-    tile_ns: Sequence[int] = (128, 256, 512),
     window_ks: Sequence[int] = (2048, 4096, 8192),
     top: int = 1,
     n: int = 512,
 ) -> List[TuneResult]:
-    """Analytic config choice for the MXU dense-slab kernel; best first.
-
-    Modeled cycles: blocks * MXU_BLOCK_CYCLES * panels + group overhead +
-    (A re-stream per panel + B window refetch per job + C in/out) DMA.
+    """Analytic config choice for the block_k x 128 dense-slab format; best
+    first, by :func:`block_bytes` with 128-row blocks.
 
     Candidates whose packed A would exceed ``MXU_MAX_BYTES_PER_NNZ`` are
     dropped: on scattered patterns the dense-slab format inflates to
-    KB-per-nonzero (scircuit-class measured ~8.7 KB/nnz), which is a
-    host-memory and upload bomb long before it is a kernel-time problem.
-    """
+    kilobytes per nonzero."""
     m = max(coo.shape[0], 1)
     counts = block_counts_mxu(coo, block_ks)
     results = []
@@ -281,7 +211,6 @@ def choose_config_mxu(
                 continue
             if nb * bk * 128 * 4 > MXU_MAX_BYTES_PER_NNZ * max(coo.nnz, 1):
                 continue
-            # group ~512-1024 vals sublanes per DMA step
             gb = max(1, min(64, 1024 // bk))
             avg_job = max(1, nb // max(njobs, 1))
             while gb > 1 and gb > 2 * avg_job:
@@ -290,56 +219,24 @@ def choose_config_mxu(
                 block_k=bk, tile_m=tm, window_k=wk, group_blocks=gb
             )
             padded_blocks = nb + njobs * gb // 2
-            ngroups = max(1, cdiv(padded_blocks, gb))
-            a_bytes = padded_blocks * (bk * 128 * 4 + 8)
-            for tn in tile_ns:
-                if tn > ((n + 127) // 128) * 128:
-                    continue
-                if vmem_estimate(cfg.with_(n_acc=1), tn) > VMEM_BUDGET:
-                    continue
-                panels = max(1, cdiv(n, tn))
-                cost = (
-                    padded_blocks * MXU_BLOCK_CYCLES * panels
-                    + ngroups * C_GROUP * panels
-                    + (
-                        njobs * cfg.window_k * 4 * n
-                        + 2 * m * n * 4
-                        + a_bytes * panels
-                    )
-                    / BYTES_PER_CYCLE
-                )
-                results.append(
-                    TuneResult(cfg.with_(tile_n=tn), cost, fmt="mxu")
-                )
-    if not results:
-        return []
+            cost = (block_bytes(padded_blocks, 128, bk, n)
+                    + _dense_io_bytes(m, n))
+            results.append(TuneResult(cfg, cost, fmt="mxu"))
     results.sort(key=lambda r: r.predicted_cost)
     return results[:top]
-
-
-# Edge-stream kernel (ops/spmm_edge_pallas.py) per-slot cost: SMEM decode +
-# one (1, tile_n) unaligned gather-FMA + amortized row flush. v5e round-2
-# measurements (nasa4704, mildly contended session): ~21 cyc/slot at
-# tile_n=128, ~113 at tile_n=512 (L=4) — the dynamic-sublane extract cost
-# scales with tile_n. The per-edge paths on this hardware are latency-bound
-# 20-100x above the FPGA's 1/64-cycle URAM scatter (docs/DESIGN.md bound).
-EDGE_CYCLES_FIXED = 6.0
-EDGE_CYCLES_PER_128LANES = 20.0
 
 
 def choose_config_edge(
     coo: COOMatrix,
     base: SpmmConfig = SpmmConfig(),
     tile_ms: Sequence[int] = (1024, 2048, 4096, 8192, 16384),
-    tile_ns: Sequence[int] = (128, 256, 512),
     window_ks: Sequence[int] = (4096, 8192, 16384, 32768),
     top: int = 1,
     n: int = 512,
 ) -> List[TuneResult]:
-    """Analytic config choice for the structure-independent edge-stream
-    kernel; best first. Cost is pattern-independent per edge (the format
-    never pads beyond job-chunk tails), so this family wins exactly where
-    block fill collapses — scattered/power-law residues."""
+    """Analytic config choice for the edge format (one 1 x 1 block per
+    nonzero, padding only at job-chunk tails); best first. Its cost does
+    not depend on the pattern, so it wins where block fill collapses."""
     from sextans_tpu.format.pack_edge import MAX_TILE_M, MAX_WINDOW_K
 
     m = max(coo.shape[0], 1)
@@ -354,110 +251,29 @@ def choose_config_edge(
                 continue
             njobs = job_counts(coo, tm, wk)
             padded_edges = nnz + njobs * E // 2
-            nchunks = max(1, cdiv(padded_edges, E))
-            a_bytes = 8 * nchunks * E
-            cfg = base.with_(tile_m=tm, window_k=wk)
-            for tn in tile_ns:
-                if tn > ((n + 127) // 128) * 128:
-                    continue
-                vmem = 4 * (
-                    tm * tn + 4 * tm * tn + 2 * wk * tn
-                ) + 16 * E
-                if vmem > VMEM_BUDGET:
-                    continue
-                panels = max(1, cdiv(n, tn))
-                cost = (
-                    padded_edges
-                    * (EDGE_CYCLES_FIXED + EDGE_CYCLES_PER_128LANES * tn / 128)
-                    * panels
-                    + nchunks * C_GROUP * panels
-                    + (
-                        njobs * wk * 4 * n
-                        + 2 * m * n * 4
-                        + a_bytes * panels
-                    )
-                    / BYTES_PER_CYCLE
-                )
-                results.append(
-                    TuneResult(cfg.with_(tile_n=tn), cost, fmt="edge")
-                )
+            cost = block_bytes(padded_edges, 1, 1, n) + _dense_io_bytes(m, n)
+            results.append(
+                TuneResult(base.with_(tile_m=tm, window_k=wk), cost,
+                           fmt="edge")
+            )
     results.sort(key=lambda r: r.predicted_cost)
     return results[:top]
-
-
-# HBM-gather engine, XLA variant (ops/spmm_ell_xla.py): modeled as pure
-# bandwidth with a derating factor for XLA's gather lowering.
-# 4.0 is a deliberately pessimistic placeholder — the model should only
-# claim the row where even derated bandwidth beats the ~20-cycle
-# per-edge VPU floor.
-ELL_GATHER_FACTOR = 4.0
-ELL_SCAN_STEP_CYCLES = 3000.0  # lax.map step dispatch overhead
-
-# Pallas chunk-gather variant (ops/spmm_ell_pallas.py): one 4 KiB chunk DMA
-# per slot, scalar-issue bound. v5e calibration (940 MHz), from
-# benchmarks/scratch/ell_issue_probe.py (variant C, uniform 262k-row sweep)
-# and ell_fold_probe.py (real amazon_like packs):
-#   cycles/DMA ~ (18 + 2*ns) * depth_factor(R)
-#     ns=1 (n_pad=128): R=8 -> 19.6 meas / 20 model; R=4 -> 24.7 / 25
-#     ns=4 (n_pad=512): R=8 -> 26.5 / 26; R=4 -> 33.3 / 32.5; R=2 -> 36.4
-#   (shallow R starves the double-buffered DMA pipeline, hence the factor)
-# hub fold (XLA scatter-add): full-array copy (aliased functional update)
-#   plus ~11.6 * ns cycles per virtual row (62 ms @ 1.25M rows, ns=4).
-_ELL_PALLAS_DEPTH_FACTOR = {1: 1.7, 2: 1.4, 3: 1.3, 4: 1.25, 6: 1.1}
-ELL_PALLAS_FOLD_CYCLES_PER_NS = 11.6
-
-
-def _ell_pallas_n_pad(n: int) -> int:
-    from sextans_tpu.utils.config import round_up
-
-    for c in (128, 256, 512, 1024):
-        if n <= c:
-            return c
-    return round_up(n, 1024)
-
-
-def _ell_pallas_cycles(deg: np.ndarray, r: int, n_pad: int) -> float:
-    """Modeled cycles of one Pallas chunk-gather call at slots_per_row=r
-    (pad rows from tile_m rounding excluded — added per-candidate)."""
-    chunks = np.maximum(-(-deg // r), (deg > 0).astype(np.int64))
-    slots = int(np.maximum(chunks, 1).sum()) * r
-    virt = int(np.maximum(chunks - 1, 0).sum())
-    m = deg.shape[0]
-    panels = max(1, n_pad // 1024)
-    ns = min(n_pad, 1024) // 128
-    per_dma = max(
-        (18.0 + 2.0 * ns) * _ELL_PALLAS_DEPTH_FACTOR.get(r, 1.0),
-        4096.0 / BYTES_PER_CYCLE,
-    )
-    stream = (
-        slots * 8.0  # cols/vals
-        + (m + virt) * n_pad * 4.0  # AB write
-    )
-    cost = slots * panels * per_dma + stream / BYTES_PER_CYCLE
-    if virt:
-        # XLA scatter-add fold: aliased read+write copy of the whole
-        # padded output, plus the per-virtual-row scatter work
-        cost += (m + virt) * n_pad * 8.0 / BYTES_PER_CYCLE
-        cost += virt * ELL_PALLAS_FOLD_CYCLES_PER_NS * ns * panels
-    return cost
 
 
 def choose_config_ell(
     coo: COOMatrix,
     base: SpmmConfig = SpmmConfig(),
-    tile_ms: Sequence[int] = (8192, 16384, 32768, 65536),
+    tile_ms: Sequence[int] = (512, 8192, 65536),
     top: int = 1,
     n: int = 512,
-    engine: str = "auto",
 ) -> List[TuneResult]:
-    """Analytic config choice for the HBM-gather ELL engines; best first.
+    """Analytic config choice for the ELL gather format; best first.
 
-    ``engine`` selects the cost model for the variant SpmmPlan's auto
-    backend will actually run: "pallas" (chunk-gather kernel, DMA-issue
-    bound — the TPU path) or "xla" (bulk jnp.take, bandwidth model); "auto"
-    resolves by jax.default_backend(). Candidates whose slot inflation
-    would make ``pack_ell`` refuse are dropped here so the race never
-    wastes a pack."""
+    The slot count comes from the degree histogram
+    (:func:`~sextans_tpu.format.pack_ell.choose_slots_per_row`); the cost is
+    its gather traffic plus the pad rows that rounding the row count up to
+    ``tile_m`` adds. Candidates whose slot inflation would make ``pack_ell``
+    refuse are dropped."""
     from sextans_tpu.format.pack_ell import (
         DEFAULT_MAX_BYTES_PER_NNZ,
         ELL_MIN_FETCH,
@@ -466,47 +282,12 @@ def choose_config_ell(
     )
     from sextans_tpu.utils.config import round_up
 
-    if engine == "auto":
-        # SEXTANS_ELL_ENGINE pins the model when the choosing process is
-        # not the executing one (benchmarks/prepack.py warms pack caches on
-        # a CPU-pinned process for a TPU suite run — candidate enumeration
-        # must match or every warmed ELL pack misses)
-        import os
-
-        engine = os.environ.get("SEXTANS_ELL_ENGINE", "")
-        if engine not in ("pallas", "xla"):
-            import jax
-
-            engine = "pallas" if jax.default_backend() == "tpu" else "xla"
-
     m = max(coo.shape[0], 1)
     nnz = max(coo.nnz, 1)
     deg = np.bincount(coo.rows, minlength=m).astype(np.int64)
-    if engine == "pallas":
-        n_pad = _ell_pallas_n_pad(max(n, 1))
-        r_cands = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
-        r = min(r_cands, key=lambda rc: _ell_pallas_cycles(deg, rc, n_pad))
-        base_cycles = _ell_pallas_cycles(deg, r, n_pad)
-        panels = max(1, n_pad // 1024)
-        ns = min(n_pad, 1024) // 128
-        per_dma = max(
-            (18.0 + 2.0 * ns) * _ELL_PALLAS_DEPTH_FACTOR.get(r, 1.0),
-            4096.0 / BYTES_PER_CYCLE,
-        )
-        pad_row_cycles = r * panels * per_dma + n_pad * 4.0 / BYTES_PER_CYCLE
-        step_cycles = 0.0
-    else:
-        r = choose_slots_per_row(coo, n=n)
-        base_cycles = (
-            ell_traffic_bytes(deg, r, n) / BYTES_PER_CYCLE * ELL_GATHER_FACTOR
-        )
-        # same minimum-fetch constant as ell_traffic_bytes: recalibrating
-        # pack_ell.ELL_MIN_FETCH must move both cost terms together
-        row_bytes = max(4 * n, ELL_MIN_FETCH)
-        pad_row_cycles = (
-            r * (row_bytes + 8.0) / BYTES_PER_CYCLE * ELL_GATHER_FACTOR
-        )
-        step_cycles = ELL_SCAN_STEP_CYCLES
+    r = choose_slots_per_row(coo, n=n)
+    base_bytes = ell_traffic_bytes(deg, r, n) + m * n * 4.0
+    pad_row_bytes = r * (max(4 * n, ELL_MIN_FETCH) + 8.0) + 4.0 * n
     chunks = np.maximum(-(-deg // r), (deg > 0).astype(np.int64))
     virt = int(np.maximum(chunks - 1, 0).sum())
     m_total = m + virt
@@ -518,14 +299,9 @@ def choose_config_ell(
             and 8 * m_padded * r > (1 << 20)
         ):
             continue  # pack_ell would refuse this inflation
-        pad_rows = m_padded - m_total
-        cost = (
-            base_cycles
-            + pad_rows * pad_row_cycles
-            + (m_padded // tm) * step_cycles
-        )
-        cfg = base.with_(tile_m=tm, ell_r=r)
-        results.append(TuneResult(cfg, cost, fmt="ell"))
+        cost = base_bytes + (m_padded - m_total) * pad_row_bytes
+        results.append(TuneResult(base.with_(tile_m=tm, ell_r=r), cost,
+                                  fmt="ell"))
     results.sort(key=lambda t: t.predicted_cost)
     return results[:top]
 
@@ -536,8 +312,7 @@ def choose_backend(
     base: SpmmConfig = SpmmConfig(),
     top: int = 1,
 ) -> List[TuneResult]:
-    """Joint analytic choice across the three kernel families (VPU block
-    format, MXU dense-slab format, structure-independent edge stream) — the
+    """Joint analytic choice across the four packed formats — the
     per-sparsity-pattern dispatch the reference resolves at bitstream-build
     time. Returns the merged top-N, best first; ``TuneResult.fmt`` says
     which pack pass to run."""
@@ -560,9 +335,8 @@ def autotune(
 ) -> TuneResult:
     """Measured autotune: time the top analytic candidates on device.
 
-    Candidates span BOTH kernel families (VPU block format and MXU
-    dense-slab format); ``backend`` applies to VPU candidates only ("auto"
-    resolves per format).
+    Candidates span all four formats; ``backend`` applies to block-format
+    candidates only ("auto" resolves per format, ops/engines.py).
     """
     import jax.numpy as jnp
 
@@ -618,31 +392,22 @@ def autotune(
 
 
 def hybrid_cost(split, n: int = 512) -> float:
-    """Modeled cycles for executing a HybridSplit: dense parts (DIA kernel
-    traffic + VPU FLOPs, head MXU matmuls) plus the residue's best blocked
-    cost. Comparable against choose_backend(...)[0].predicted_cost for the
-    engage/skip decision."""
+    """Modeled bytes of one HybridSpmmPlan call: the diagonal values and one
+    pass over B for the fused diagonal part, the dense head strips with
+    their B rows, and the residue's best format. Comparable with
+    ``choose_backend(...)[0].predicted_cost`` for the engage/skip
+    decision."""
     m, k = split.m, split.k
+    cost = _dense_io_bytes(m, n)
     D = int(split.diag_offsets.size)
-    cost = 0.0
     if D:
-        from sextans_tpu.ops.spmm_dia_pallas import cluster_offsets
-
-        nbb = sum(
-            (cl[-1] - cl[0]) // 512 + 2
-            for cl in cluster_offsets([int(o) for o in split.diag_offsets], 512)
-        )
-        # B blocks + C in/out traffic, plus VPU FMA work
-        cost += (nbb * m * n * 4 + 2 * m * n * 4) / BYTES_PER_CYCLE
-        cost += D * m * n * 2 / 2048.0
+        cost += D * m * 4.0 + k * n * 4.0
     H = int(split.head_cols.size)
     if H:
-        cost += 2.0 * m * H * n / 10000.0  # MXU f32 ~10k FLOP/cycle
-        cost += m * H * 4 / BYTES_PER_CYCLE
+        cost += m * H * 4.0 + H * n * 4.0
     R = int(split.head_rows.size)
     if R:
-        cost += 2.0 * R * k * n / 10000.0
-        cost += R * k * 4 / BYTES_PER_CYCLE
+        cost += R * k * 4.0 + k * n * 4.0
     if split.residue.nnz:
         cost += choose_backend(split.residue, n=n)[0].predicted_cost
     return cost

@@ -9,7 +9,7 @@ from sextans_tpu.format.coo import COOMatrix
 from sextans_tpu.ops.autodiff import spmm_op
 from sextans_tpu.utils.config import SpmmConfig
 
-CFG = SpmmConfig(tile_m=32, window_k=128, block_k=8, group_blocks=16, tile_n=128)
+CFG = SpmmConfig(tile_m=32, window_k=128, block_k=8, group_blocks=16)
 
 
 def _setup(m=60, k=80, n=16, nnz=500, seed=3):
@@ -84,10 +84,8 @@ def _dense_of(coo, vals):
 
 @pytest.mark.parametrize("fmt,cfg", [
     ("vpu", CFG),
-    ("mxu", SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=4,
-                       tile_n=128)),
-    ("edge", SpmmConfig(tile_m=64, window_k=128, edge_chunk=128,
-                        edge_lanes=2, tile_n=128)),
+    ("mxu", SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=4)),
+    ("edge", SpmmConfig(tile_m=64, window_k=128, edge_chunk=128)),
     ("ell", SpmmConfig(tile_m=32, ell_r=4)),
 ])
 def test_value_op_all_grads(fmt, cfg):
@@ -124,8 +122,7 @@ def test_value_op_all_grads(fmt, cfg):
 def test_value_op_finite_differences():
     """jax.grad vs central finite differences on vals, alpha, beta."""
     coo, b, c = _setup(m=40, k=50, n=8, nnz=200, seed=31)
-    cfg = SpmmConfig(tile_m=32, window_k=64, block_k=8, group_blocks=16,
-                     tile_n=128)
+    cfg = SpmmConfig(tile_m=32, window_k=64, block_k=8, group_blocks=16)
     op = spmm_value_op(coo, 8, backend="xla", config=cfg)
     vals0 = jnp.asarray(coo.vals)
 

@@ -1,5 +1,4 @@
-"""Autotuner tests (analytic mode on CPU; measured mode is exercised on TPU
-in benchmarks)."""
+"""Autotuner tests (analytic mode, and measured mode on the CPU)."""
 
 import numpy as np
 
@@ -26,12 +25,11 @@ def test_block_counts_exact():
 
 def test_choose_config_scattered_is_scalar_bound():
     """Fully scattered matrix: every nonzero is its own block at ANY bk, so
-    the per-block scalar steering (~S_BLOCK/bk per visit, round-2 v5e
-    calibration) dominates and larger bk wins — tiny bk was measured at
-    ~107 cycles/visit vs ~26 at bk=8."""
+    wider blocks only gather more unused B rows — the byte model picks a
+    narrow block (bk=1 pays more group padding, 128-block groups)."""
     coo = COOMatrix.random(4096, 4096, 8000, seed=1)  # ~0.05% density
     best = choose_config(coo, SpmmConfig())[0]
-    assert best.config.block_k >= 4
+    assert best.config.block_k <= 2
 
 
 def test_choose_config_prefers_big_bk_for_dense_band():
@@ -53,7 +51,7 @@ def test_choose_config_valid_configs():
 
 def test_autotune_measured_cpu():
     coo = COOMatrix.random(300, 300, 3000, seed=5)
-    cfg = SpmmConfig(tile_m=64, window_k=256, tile_n=128)
+    cfg = SpmmConfig(tile_m=64, window_k=256)
     best = autotune(coo, 16, base=cfg, block_ks=(4, 8), candidates=2,
                     backend="xla", rp_time=2)
     assert best.measured_ms is not None and best.measured_ms > 0

@@ -4,6 +4,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
@@ -90,101 +91,6 @@ def test_race_includes_2d_reorder_candidates(monkeypatch):
     assert "2d-reorder candidates added" in err.getvalue()
 
 
-def test_store_challenge_reopens_hybrid_gate(tmp_path, monkeypatch):
-    """A stored first-pass winner is challenged when the current hybrid
-    model predicts >=2x its measured GFLOPS (round-3: improved DIA lift
-    must not be frozen out by earlier passes)."""
-    import contextlib
-    import io
-
-    import numpy as np
-
-    from benchmarks import suite as suite_mod
-    from sextans_tpu.format.coo import COOMatrix
-    from sextans_tpu.utils.autotune import ConfigStore
-    from sextans_tpu.utils.config import SpmmConfig
-
-    # circuit-band matrix: near-total DIA cover under the cost-based lift
-    rng = np.random.default_rng(2)
-    m = 60000
-    diag = np.arange(m, dtype=np.int64)
-    lr = rng.integers(0, m, m * 4)
-    lc = np.clip(lr + rng.integers(-40, 41, m * 4), 0, m - 1)
-    rows = np.concatenate([diag, lr])
-    cols = np.concatenate([diag, lc])
-    lin = rows * m + cols
-    _, keep = np.unique(lin, return_index=True)
-    coo = COOMatrix((m, m), rows[keep].astype(np.int32),
-                    cols[keep].astype(np.int32),
-                    np.ones(keep.size, np.float32))
-
-    store = ConfigStore(tmp_path / "tuned.json")
-    # a frozen slow blocked winner (the round-3 scircuit situation)
-    store.put("hubchal|n=16", SpmmConfig(), fmt="vpu", gflops=2.0)
-
-    import sextans_tpu.utils.timing as timing_mod
-
-    monkeypatch.setattr(
-        timing_mod, "time_repeat",
-        lambda plan, b, a, be, c, times=1, detail=False:
-            (1e-3, {"method": "differential", "times": times})
-            if detail else 1e-3)
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        rec = suite_mod.run_one(
-            "hubchal", coo, 16, "xla", True, verify_gate=True, store=store,
-        )
-    assert "store challenge" in err.getvalue()
-    assert rec["fmt"].startswith("hybrid")
-    assert rec["verify"] == "pass"
-
-
-def test_reverse_store_challenge_reraces_stale_hybrid(tmp_path, monkeypatch):
-    """A stored slow HYBRID winner is cleared for re-racing when the model's
-    best single-engine prediction is >=2x its stored GFLOPS (round-3: a
-    frozen 1.6 GFLOPS hybrid decision on mac_econ N=16)."""
-    import contextlib
-    import io
-
-    from benchmarks import suite as suite_mod
-    from sextans_tpu.format.coo import COOMatrix
-    from sextans_tpu.utils.autotune import ConfigStore
-    from sextans_tpu.utils.config import SpmmConfig
-
-    # banded matrix with decent diagonal cover so a hybrid split exists
-    rng = np.random.default_rng(5)
-    m = 20000
-    diag = np.arange(m, dtype=np.int64)
-    lr = rng.integers(0, m, m * 3)
-    lc = np.clip(lr + rng.integers(-30, 31, m * 3), 0, m - 1)
-    rows = np.concatenate([diag, lr])
-    cols = np.concatenate([diag, lc])
-    lin = rows * m + cols
-    _, keep = np.unique(lin, return_index=True)
-    coo = COOMatrix((m, m), rows[keep].astype(np.int32),
-                    cols[keep].astype(np.int32),
-                    np.ones(keep.size, np.float32))
-
-    store = ConfigStore(tmp_path / "tuned.json")
-    # a frozen, absurdly slow hybrid winner
-    store.put("revchal|n=16", SpmmConfig(), fmt="hybrid", gflops=0.01)
-
-    import sextans_tpu.utils.timing as timing_mod
-
-    monkeypatch.setattr(
-        timing_mod, "time_repeat",
-        lambda plan, b, a, be, c, times=1, detail=False:
-            (1e-3, {"method": "differential", "times": times})
-            if detail else 1e-3)
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        rec = suite_mod.run_one(
-            "revchal", coo, 16, "xla", True, verify_gate=True, store=store,
-        )
-    assert "reverse store challenge" in err.getvalue()
-    assert rec["verify"] == "pass"
-
-
 def test_csr_take_rows_matches_naive():
     from benchmarks.suite import _csr_take_rows
     from sextans_tpu.format.csr import CSRMatrix
@@ -234,31 +140,23 @@ def test_run_one_sampled_verify(monkeypatch):
 
 
 def test_load_covered_skips_only_healthy_rows(tmp_path):
-    """Coverage-first budgeting: a canonical row counts as covered only if
-    it has a timing AND its canary was healthy; error rows and contended
-    rows must be re-run by later passes."""
+    """Coverage-first budgeting: a row counts as covered only if it has a
+    timing; error rows must be re-run by later passes."""
     import json
 
     from benchmarks.suite import load_covered
 
     doc = {
         "results": [
-            # healthy merged row (carries its own session, overnight-style)
-            {"matrix": "a", "n": 16, "gflops": 10.0,
-             "canary_pre_ms": 0.4, "canary_post_ms": 0.45,
-             "session": {"canary_healthy_ms": 0.5}},
-            # contended row: canary above the session threshold
-            {"matrix": "a", "n": 512, "gflops": 3.0,
-             "canary_pre_ms": 2.0,
-             "session": {"canary_healthy_ms": 0.5}},
+            {"matrix": "a", "n": 16, "gflops": 10.0},
+            {"matrix": "a", "n": 512, "gflops": 3.0},
             # error row: never timed
-            {"matrix": "b", "n": 16, "error": "boom",
-             "session": {"canary_healthy_ms": 0.5}},
+            {"matrix": "b", "n": 16, "error": "boom"},
         ]
     }
     p = tmp_path / "canon.json"
     p.write_text(json.dumps(doc))
-    assert load_covered(p) == {("a", 16)}
+    assert load_covered(p) == {("a", 16), ("a", 512)}
     assert load_covered(tmp_path / "missing.json") == set()
 
 
@@ -315,7 +213,7 @@ def test_footprint_gate_skips_oversized_candidate(monkeypatch):
         raise AssertionError("expected every candidate to be gated")
 
 
-def _hybrid_band_coo(seed=2, m=60000):
+def _hybrid_band_coo(seed=2, m=60000, band=40):
     """Circuit-band matrix: near-total DIA cover -> the hybrid gate fires."""
     import numpy as np
 
@@ -324,7 +222,7 @@ def _hybrid_band_coo(seed=2, m=60000):
     rng = np.random.default_rng(seed)
     diag = np.arange(m, dtype=np.int64)
     lr = rng.integers(0, m, m * 4)
-    lc = np.clip(lr + rng.integers(-40, 41, m * 4), 0, m - 1)
+    lc = np.clip(lr + rng.integers(-band, band + 1, m * 4), 0, m - 1)
     rows = np.concatenate([diag, lr])
     cols = np.concatenate([diag, lc])
     lin = rows * m + cols
@@ -336,16 +234,17 @@ def _hybrid_band_coo(seed=2, m=60000):
 
 def test_untimeable_hybrid_falls_back_to_blocked_race(monkeypatch):
     """A hybrid plan whose compile/timing raises must not keep the row:
-    the blocked race runs and its winner lands (webbase1M N=512: the
-    hybrid+ell repeat chain OOMed and the whole row errored although the
-    vpu candidate ran at ~52 ms)."""
+    the blocked race runs and its winner lands."""
     import contextlib
     import io
 
     from benchmarks import suite as suite_mod
     from sextans_tpu.ops import hybrid as hybrid_mod
+    from sextans_tpu.utils import autotune as autotune_mod
 
-    coo = _hybrid_band_coo()
+    coo = _hybrid_band_coo(band=10)
+    # the model gate sends the row to the hybrid plan
+    monkeypatch.setattr(autotune_mod, "hybrid_cost", lambda split, n: 0.0)
 
     def boom(self, *a, **k):
         raise RuntimeError("synthetic hybrid compile OOM")
@@ -373,7 +272,7 @@ def test_untimeable_hybrid_falls_back_to_blocked_race(monkeypatch):
 
 def test_time_repeat_chained_protocol():
     """The host-chained timing fallback returns a positive time with
-    chained-* method provenance and matches the plan's semantics."""
+    chained method provenance."""
     from sextans_tpu.format.pack import pack
     from sextans_tpu.ops.plan import SpmmPlan
     from sextans_tpu.utils.config import SpmmConfig
@@ -391,12 +290,12 @@ def test_time_repeat_chained_protocol():
     secs, info = time_repeat_chained(plan, b, 0.85, -2.06, c, times=2,
                                      detail=True)
     assert secs > 0
-    assert info["method"].startswith("chained-")
+    assert info == {"method": "chained", "times": 2}
 
 
 def test_measure_falls_back_to_chained_timing(monkeypatch):
     """run_one lands a timed row even when the in-device repeat chain
-    cannot compile (jit(rep) HBM OOM): timing provenance says chained-*."""
+    cannot compile: timing provenance says chained."""
     import contextlib
     import io
 
@@ -415,7 +314,7 @@ def test_measure_falls_back_to_chained_timing(monkeypatch):
                                 use_autotune=False, rp_time=2)
     assert "falling back to host-chained timing" in err.getvalue()
     assert rec["gflops"] > 0
-    assert rec["timing"]["method"].startswith("chained-")
+    assert rec["timing"]["method"] == "chained"
 
 
 def test_force_race_ignores_stored_winner(tmp_path, monkeypatch):
@@ -459,80 +358,6 @@ def test_force_race_ignores_stored_winner(tmp_path, monkeypatch):
     assert rec["verify"] == "pass"
 
 
-def test_merge_stamps_gate_note_without_cmaxabs(tmp_path):
-    """Retro gate accounting must not leave a silent meets_1e6_gate=false:
-    r3-era rows carry c_max_abs=None AND gate_unreachable=None keys (the
-    old `not in r` check skipped them) — they get the no-ulp note."""
-    import json as _json
-
-    from benchmarks.overnight import merge
-
-    doc = {"session": {"nasa_canary_ms": 0.2, "canary_healthy_ms": 0.5},
-           "results": [
-               {"matrix": "old", "n": 16, "gflops": 10.0,
-                "meets_1e6_gate": False, "gate_unreachable": None,
-                "gate_note": None, "c_max_abs": None,
-                "canary_pre_ms": 0.2, "canary_post_ms": 0.2},
-               {"matrix": "ulp", "n": 16, "gflops": 10.0,
-                "meets_1e6_gate": False, "gate_unreachable": None,
-                "gate_note": None, "c_max_abs": 100.0,
-                "canary_pre_ms": 0.2, "canary_post_ms": 0.2},
-           ]}
-    p = tmp_path / "pass_01.json"
-    p.write_text(_json.dumps(doc))
-    out = tmp_path / "merged.json"
-    merge([p], out)
-    rows = {r["matrix"]: r for r in _json.loads(out.read_text())["results"]}
-    assert rows["old"]["gate_note"] == "precise-not-attempted:pre-r4-row-no-ulp"
-    # c_max_abs=100 -> ulp(f32 100.0) ~ 7.6e-6 > 2e-6 -> structurally
-    # unreachable for an f32 kernel
-    assert rows["ulp"]["gate_unreachable"] is True
-
-
-def test_merge_carries_gate_evidence_to_faster_winner(tmp_path):
-    """The 1e-6 gate is a (matrix, N) workload property: a faster re-raced
-    winner whose own precise attempt failed (compile outage) must inherit
-    the gate banked on a slower healthy sample, not demote it to false."""
-    import json as _json
-
-    from benchmarks.overnight import merge
-
-    ses = {"nasa_canary_ms": 0.2, "canary_healthy_ms": 0.5}
-    gated = {
-        "matrix": "amz", "n": 512, "gflops": 8.15, "fmt": "vpu",
-        "meets_1e6_gate": True, "gate_note": "precise-gate:level1",
-        "precise_sample": {"level": 1, "backend": "pallas",
-                           "max_abs_vs_f64": 9.1e-07},
-        "c_max_abs": 20.0,
-        "canary_pre_ms": 0.2, "canary_post_ms": 0.2,
-    }
-    faster = {
-        "matrix": "amz", "n": 512, "gflops": 27.97, "fmt": "ell",
-        "meets_1e6_gate": False,
-        "gate_note": "precise-failed:no-level-ran",
-        "c_max_abs": 20.0,
-        "canary_pre_ms": 0.2, "canary_post_ms": 0.2,
-    }
-    p1 = tmp_path / "pass_01.json"
-    p1.write_text(_json.dumps({"session": ses, "results": [gated]}))
-    p2 = tmp_path / "pass_02.json"
-    p2.write_text(_json.dumps({"session": ses, "results": [faster]}))
-    out = tmp_path / "merged.json"
-    merge([p1, p2], out)
-    rows = _json.loads(out.read_text())["results"]
-    assert len(rows) == 1
-    r = rows[0]
-    assert r["gflops"] == 27.97  # headline stays the fastest healthy sample
-    assert r["meets_1e6_gate"] is True  # gate rides the workload evidence
-    assert r["gate_note"] == "precise-gate:level1(carried)"
-    assert r["precise_sample"]["carried_from"] == str(p1)
-    # a merged sample that is already the strongest evidence is untouched
-    merge([p1], out)
-    only = _json.loads(out.read_text())["results"][0]
-    assert only["gate_note"] == "precise-gate:level1"
-    assert "carried_from" not in only["precise_sample"]
-
-
 def test_nsweep_resume_state_keeps_measured_drops_errors():
     from benchmarks.nsweep import resume_state
 
@@ -545,132 +370,6 @@ def test_nsweep_resume_state_keeps_measured_drops_errors():
     assert done == {("a", 8), ("b", 8)}  # error cell gets retried
     assert [r["matrix"] for r in rows] == ["a", "b"]
     assert resume_state({}) == ([], set())
-
-
-def test_bench_wait_for_quiet_pool(tmp_path, monkeypatch):
-    import bench
-
-    class Clock:
-        def __init__(self):
-            self.t = 0.0
-            self.slept = []
-
-        def time(self):
-            return self.t
-
-        def sleep(self, s):
-            self.slept.append(s)
-            self.t += s
-
-    # no pid files -> returns immediately
-    clk = Clock()
-    bench.wait_for_quiet_pool(
-        max_wait_s=100, _clock=clk, pidfiles=(str(tmp_path / "x.pid"),)
-    )
-    assert clk.slept == []
-
-    # a live "scheduler" (this test process) with a matching marker waits
-    # to the deadline; a non-matching cmdline is ignored (pid-reuse guard)
-    pidfile = tmp_path / "night.pid"
-    pidfile.write_text(str(__import__("os").getpid()))
-    clk = Clock()
-    bench.wait_for_quiet_pool(
-        max_wait_s=70, poll_s=30, _clock=clk,
-        pidfiles=(str(pidfile),), markers=(b"python",),
-    )
-    assert sum(clk.slept) == 70  # capped exactly at the deadline
-    clk = Clock()
-    bench.wait_for_quiet_pool(
-        max_wait_s=70, _clock=clk,
-        pidfiles=(str(pidfile),), markers=(b"no-such-marker",),
-    )
-    assert clk.slept == []  # pid alive but not a scheduler -> not busy
-
-    # stale pid (unlikely-to-exist pid number) -> not busy
-    pidfile.write_text("999999999")
-    clk = Clock()
-    bench.wait_for_quiet_pool(
-        max_wait_s=70, _clock=clk, pidfiles=(str(pidfile),)
-    )
-    assert clk.slept == []
-
-
-def test_bank_isolated_one_child_per_row_parent_never_writes(
-    tmp_path, monkeypatch
-):
-    import json as _json
-    import subprocess
-    import types
-
-    from benchmarks import precise_verify as pv
-
-    results = tmp_path / "results.json"
-    doc = {"results": [
-        {"matrix": "a_like", "n": 16, "gflops": 1.0, "nnz": 10},
-        {"matrix": "a_like", "n": 512, "gflops": 1.0, "nnz": 10},
-        {"matrix": "b_like", "n": 512, "gflops": 1.0, "nnz": 99},
-    ]}
-    results.write_text(_json.dumps(doc))
-
-    calls = []
-
-    def fake_run(cmd, timeout=None):
-        calls.append(cmd)
-        # child banks its row by rewriting the results file (as the real
-        # child does); b_like "fails" transiently (rc=1, no bank) on its
-        # FIRST child and banks on the retry-pass child — the observed
-        # compile-outage / HBM-contention failure mode
-        cur = _json.loads(results.read_text())
-        sel = (cmd[cmd.index("--only") + 1], int(cmd[cmd.index("--n") + 1]))
-        first_b = sel[0] == "b_like" and sum(
-            1 for c in calls if "b_like" in c
-        ) == 1
-        rc = 0
-        for r in cur["results"]:
-            if (r["matrix"], r["n"]) == sel:
-                if first_b:
-                    rc = 1
-                else:
-                    r["meets_1e6_gate"] = True
-        results.write_text(_json.dumps(cur))
-        return types.SimpleNamespace(returncode=rc)
-
-    monkeypatch.setattr(subprocess, "run", fake_run)
-    args = types.SimpleNamespace(
-        results=str(results), tuned_configs="unused.json", deadline_ts=None
-    )
-    todo = [dict(r) for r in doc["results"]]
-    rc = pv._bank_isolated(args, todo)
-    assert rc == 0
-    # 3 first-pass children + 1 retry child for the transient failure
-    assert len(calls) == 4
-    # every child carries --no-isolate (no recursive forking) + exact row
-    assert all("--no-isolate" in c for c in calls)
-    # children's updates survive (the parent never rewrites the file)
-    final = _json.loads(results.read_text())
-    banked = sorted((r["matrix"], r["n"]) for r in final["results"]
-                    if r.get("meets_1e6_gate"))
-    assert banked == [("a_like", 16), ("a_like", 512), ("b_like", 512)]
-
-
-def test_bank_isolated_respects_deadline(tmp_path, monkeypatch):
-    import json as _json
-    import subprocess
-    import types
-
-    from benchmarks import precise_verify as pv
-
-    results = tmp_path / "results.json"
-    results.write_text(_json.dumps({"results": []}))
-    monkeypatch.setattr(
-        subprocess, "run",
-        lambda *a, **k: (_ for _ in ()).throw(AssertionError("spawned")),
-    )
-    args = types.SimpleNamespace(
-        results=str(results), tuned_configs="u.json", deadline_ts=1.0
-    )
-    rc = pv._bank_isolated(args, [{"matrix": "x", "n": 16}])
-    assert rc == 0  # deadline in the past -> no children spawned
 
 
 def test_nsweep_redo_drops_named_measured_cells():
@@ -686,3 +385,99 @@ def test_nsweep_redo_drops_named_measured_cells():
     assert done == {("a", 128)}  # the redone cell re-races
     assert [r["n"] for r in rows] == [128]
     assert parse_redo(None) == set()
+
+
+class _FakeDevice:
+    platform = "cpu"
+    device_kind = "cpu"
+
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_device_budget_follows_device_limit(monkeypatch):
+    """The race budget is the device's own limit less a tenth; a device
+    that reports none is unbounded; an explicit override wins."""
+    import jax
+
+    from benchmarks import suite as suite_mod
+
+    monkeypatch.setattr(jax, "devices",
+                        lambda: [_FakeDevice({"bytes_limit": 1000})])
+    assert suite_mod.device_budget_bytes() == 900
+    monkeypatch.setattr(jax, "devices", lambda: [_FakeDevice(None)])
+    assert suite_mod.device_budget_bytes() == float("inf")
+    monkeypatch.setattr(suite_mod, "HBM_BUDGET_BYTES", 123)
+    assert suite_mod.device_budget_bytes() == 123
+
+
+@pytest.mark.parametrize("module", ["suite", "nsweep"])
+def test_measurement_mains_refuse_cpu(module, capsys):
+    """A measurement path that finds no GPU exits non-zero; it never times
+    the CPU under a device metric's name."""
+    import importlib
+
+    mod = importlib.import_module(f"benchmarks.{module}")
+    assert mod.main(["--n", "16"] if module == "suite" else []) == 2
+    assert capsys.readouterr().out == ""
+
+
+def test_precise_verify_dry_run_lists_reachable_rows(tmp_path, capsys):
+    """The banking driver selects gate-false, reachable, timed rows and,
+    with --dry-run, touches no device."""
+    import json as _json
+
+    from benchmarks import precise_verify as pv
+
+    doc = {"results": [
+        {"matrix": "a_like", "n": 16, "gflops": 1.0, "nnz": 10},
+        {"matrix": "a_like", "n": 512, "gflops": 1.0, "nnz": 10,
+         "meets_1e6_gate": True},
+        {"matrix": "b_like", "n": 16, "gflops": 1.0, "nnz": 10,
+         "gate_unreachable": True},
+        {"matrix": "c_like", "n": 16, "error": "boom"},
+    ]}
+    results = tmp_path / "results.json"
+    results.write_text(_json.dumps(doc))
+    todo = pv.reachable_todo(doc["results"])
+    assert [(r["matrix"], r["n"]) for r in todo] == [("a_like", 16)]
+    assert pv.main(["--results", str(results), "--tuned-configs",
+                    str(tmp_path / "t.json"), "--dry-run"]) == 0
+    assert _json.loads(results.read_text()) == doc  # dry run writes nothing
+
+
+def test_precise_gate_sample_runs_in_process():
+    """attempt_precise_gate builds the float64 twin of a winning plan in
+    this process, verifies it against the oracle and times it."""
+    import jax.numpy as jnp
+
+    from benchmarks.precise_verify import attempt_precise_gate
+    from sextans_tpu.format.csr import CSRMatrix
+    from sextans_tpu.format.pack import pack
+    from sextans_tpu.ops.golden import golden_spmm_exact
+    from sextans_tpu.ops.plan import SpmmPlan
+    from sextans_tpu.utils.config import SpmmConfig
+
+    coo = fem_like(300, dofs=3, neighbors=4, bandwidth=40, seed=3)
+    cfg = SpmmConfig(tile_m=64, window_k=128, block_k=8, group_blocks=16)
+    packed = pack(coo, cfg)
+    plan = SpmmPlan(packed, 16)
+    rng = np.random.default_rng(1)
+    b = rng.standard_normal((coo.shape[1], 16)).astype(np.float32)
+    c = rng.standard_normal((coo.shape[0], 16)).astype(np.float32)
+    csr = CSRMatrix.from_coo(coo)
+    exact = golden_spmm_exact(csr, b, 0.85, -2.06, c)
+    ulp = float(np.spacing(np.float32(np.abs(exact).max())))
+    out = attempt_precise_gate(
+        plan=plan, packed=packed, cfg=cfg, split=None, n=16, name="t",
+        coo=coo, csr=csr, b_dev=jnp.asarray(b), c_dev=jnp.asarray(c),
+        alpha=0.85, beta=-2.06, exact=exact, fetch=np.asarray, ulp=ulp,
+        full_device=False,
+    )
+    sample = out["precise_sample"]
+    assert sample["backend"] == "xla"
+    assert sample["max_abs_vs_f64"] <= 1.5 * ulp
+    assert sample["ms"] > 0

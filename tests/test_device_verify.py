@@ -1,6 +1,6 @@
 """Device-side full-matrix verification (utils/device_verify.py).
 
-The TPU analog of the reference's every-element host check
+The device-side twin of the reference's every-element host check
 (sextans-host.cpp:262-290): f64 oracle recomputed on device in blocks,
 only scalars fetched. Must agree with golden_spmm_exact and catch a
 single poisoned element anywhere in C.

@@ -1,12 +1,11 @@
-"""Double-float32 primitives (ops/df32.py) and the precise-level paths.
+"""Double-float32 primitives (ops/df32.py) and the precise paths.
 
 The EFT identities (two_sum/two_prod exactness) are asserted on raw jit —
-the XLA CPU backend is strict for isolated ops. The composed kernels are
-asserted to the FAITHFUL band (~1-2 ulp of max|C|) rather than exactness:
-XLA:CPU contracts mul+add chains into FMA inside larger programs, which
-perturbs the recovered residuals (documented in ops/df32.py); the
-correctly-rounded behavior is a TPU property, collected as gate evidence
-by benchmarks/precise_verify.py on hardware.
+the XLA CPU backend is strict for isolated ops. The precise engines
+accumulate in float64 and are asserted to the FAITHFUL band (~1-2 ulp of
+max|C|); the hybrid precise composition combines its parts with the EFTs,
+whose residuals XLA:CPU may perturb by contracting mul+add chains into FMA
+inside larger programs (documented in ops/df32.py).
 """
 
 import numpy as np
@@ -115,19 +114,19 @@ def test_vpu_precise_levels_faithful(precise):
     ulp = np.spacing(np.float32(np.abs(exact).max()))
 
     cfgk = dict(tile_m=128, window_k=256, group_blocks=16)
-    base = SpmmPlan(pack(coo, SpmmConfig(**cfgk)), n,
-                    backend="pallas_interpret")
+    base = SpmmPlan(pack(coo, SpmmConfig(**cfgk)), n, backend="xla")
     err0 = np.abs(np.asarray(base(b, 0.85, -2.06, c)) - exact).max()
     p = SpmmPlan(pack(coo, SpmmConfig(precise=precise, **cfgk)), n,
-                 backend="pallas_interpret")
+                 backend="xla")
     err = np.abs(np.asarray(p(b, 0.85, -2.06, c)) - exact).max()
     assert err <= 2.0 * ulp  # faithful band (CPU contraction caveat)
     assert err <= err0
 
 
 def test_ell_pallas_precise_with_fold():
-    """ELL precise: compensated slot accumulation + f64 hub fold under
-    jax.enable_x64 — hub-heavy matrix exercises the virtual-row fold."""
+    """ELL precise: float64 slot accumulation and hub fold (the plan enables
+    x64 itself) — a hub-heavy matrix exercises the virtual-row fold, and
+    ``auto`` takes the float64 engine for a precise pack."""
     from sextans_tpu.format.pack_ell import pack_ell
 
     rng = np.random.default_rng(5)
@@ -149,9 +148,9 @@ def test_ell_pallas_precise_with_fold():
 
     pk = pack_ell(coo, SpmmConfig(precise=True, tile_m=256))
     assert pk.fold_rows.size > 0, "hub row must produce virtual rows"
-    plan = SpmmPlan(pk, n, backend="ell_pallas_interpret")
-    with jax.enable_x64(True):
-        got = np.asarray(plan(b, 0.85, -2.06, c))
+    plan = SpmmPlan(pk, n, backend="auto")
+    assert plan.backend == "ell"
+    got = np.asarray(plan(b, 0.85, -2.06, c))
     err = np.abs(got - exact).max()
     assert err <= 2.0 * ulp
 
@@ -187,11 +186,9 @@ def test_hybrid_precise_composition():
     ulp = np.spacing(np.float32(np.abs(exact).max()))
 
     split = split_structure(coo, n=n)
-    fast = HybridSpmmPlan(split, n, dia_backend="pallas_interpret",
-                          backend="pallas_interpret")
+    fast = HybridSpmmPlan(split, n)
     err_fast = np.abs(np.asarray(fast(b, 0.85, -2.06, c)) - exact).max()
-    prec = HybridSpmmPlan(split, n, dia_backend="pallas_interpret",
-                          backend="pallas_interpret", precise=2)
+    prec = HybridSpmmPlan(split, n, precise=2)
     err_prec = np.abs(np.asarray(prec(b, 0.85, -2.06, c)) - exact).max()
     assert err_prec <= 2.0 * ulp
     assert err_prec <= err_fast

@@ -9,7 +9,7 @@ from sextans_tpu.ops.golden import golden_spmm_exact
 from sextans_tpu.ops.hybrid import HybridSpmmPlan, split_structure
 from sextans_tpu.utils.config import SpmmConfig
 
-CFG = SpmmConfig(tile_m=64, window_k=256, block_k=8, group_blocks=16, tile_n=128)
+CFG = SpmmConfig(tile_m=64, window_k=256, block_k=8, group_blocks=16)
 
 
 def _check(coo, n=32, seed=0, alpha=0.85, beta=-2.06, **split_kw):
@@ -148,8 +148,9 @@ def test_head_rows_absorb_hub_rows():
 
 
 def test_dia_pallas_kernel_path_matches():
-    """HybridSpmmPlan with the Pallas DIA kernel (interpret) must match the
-    XLA diagonal path and the oracle."""
+    """The fused diagonal part (offsets on both sides of the main diagonal,
+    reaching past the matrix edge) must match the oracle, single call and
+    in the repeat chain."""
     coo = _stencil(700, (-70, -1, 0, 1, 3, 200))
     rng = np.random.default_rng(9)
     b = rng.standard_normal((700, 40)).astype(np.float32)
@@ -158,7 +159,7 @@ def test_dia_pallas_kernel_path_matches():
     assert split.residue.nnz == 0
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, 0.85, -2.06, c)
     plan = HybridSpmmPlan(split, 40, residue_config=CFG, residue_fmt="vpu",
-                          backend="xla", dia_backend="pallas_interpret")
+                          backend="xla")
     got = np.asarray(plan(b, 0.85, -2.06, c))
     assert np.abs(got - want).max() < 5e-4
     # repeat chain through the kernel path too
@@ -205,9 +206,9 @@ def test_cost_based_head_memory_cap():
 
 def test_cost_based_diag_lift_circuit_band():
     """Round-3: a +-60 band of ~3%-dense diagonals (scircuit-class) lifts
-    fully under the cost-based rule — the tiled DIA kernel amortizes
-    clustered diagonals; the old 15% fixed rule left them to the blocked
-    kernels at ~2 GFLOPS."""
+    fully under the cost-based rule (a diagonal costs m*4 bytes of values;
+    the B reads of all diagonals fuse into one pass); the fixed 15% rule
+    leaves them to the residue."""
     rng = np.random.default_rng(9)
     m = 20000
     diag = np.arange(m, dtype=np.int64)
@@ -228,65 +229,29 @@ def test_cost_based_diag_lift_circuit_band():
 
 
 def test_dia_ct_kernel_matches_standard():
-    """Skinny-N C-transposed DIA kernel (interpret) vs the standard layout
-    and the dense reference — including block-straddling offsets."""
-    import jax.numpy as jnp
-
-    from sextans_tpu.ops.spmm_dia_pallas import (
-        spmm_dia_ct_padded,
-        spmm_dia_padded,
-    )
-
+    """Skinny-N diagonal part (N=16, not a multiple of any tile) vs a dense
+    float64 reference, with offsets past both matrix edges."""
     rng = np.random.default_rng(4)
-    m, n, tile_m = 160, 16, 64
-    offsets = (-70, -1, 0, 3, 65)  # straddles 64-row blocks, negative side
-    D = len(offsets)
-    m_pad = 192  # multiple of tile_m
-    dvals = rng.standard_normal((D, m_pad)).astype(np.float32)
-    dvals[:, m:] = 0.0
-    k = m  # square
-    b = rng.standard_normal((k, n)).astype(np.float32)
+    m, n = 160, 16
+    offsets = (-70, -1, 0, 3, 65)
+    coo = _stencil(m, offsets, seed=4)
+    split = split_structure(coo, diag_min_density=0.0)
+    assert sorted(int(o) for o in split.diag_offsets) == list(offsets)
+    assert split.residue.nnz == 0
+    b = rng.standard_normal((m, n)).astype(np.float32)
     c = rng.standard_normal((m, n)).astype(np.float32)
-    alpha, beta = jnp.float32(1.3), jnp.float32(-0.4)
-    pad_lo = 70
-
-    # dense reference
-    a = np.zeros((m_pad, k), np.float64)
-    for j, off in enumerate(offsets):
-        for i in range(m):
-            col = i + off
-            if 0 <= col < k:
-                a[i, col] = dvals[j, i]
-            else:
-                dvals[j, i] = 0.0  # out-of-range: zero for all paths
-    want = 1.3 * (a[:m] @ b.astype(np.float64)) - 0.4 * c
-
-    # standard layout
-    tile_n = 128
-    bp = jnp.pad(jnp.asarray(b), ((pad_lo, 0), (0, tile_n - n)))
-    cp = jnp.pad(jnp.asarray(c), ((0, m_pad - m), (0, tile_n - n)))
-    dvt = jnp.asarray(np.ascontiguousarray(dvals.T))
-    got_std = np.asarray(
-        spmm_dia_padded(dvt, bp, cp, alpha, beta, offsets=offsets,
-                        tile_m=tile_m, tile_n=tile_n, interpret=True)
-    )[:m, :n]
-    np.testing.assert_allclose(got_std, want, rtol=1e-5, atol=1e-4)
-
-    # CT layout
-    n_ct = 16
-    bt = jnp.pad(jnp.asarray(b.T), ((0, n_ct - n), (pad_lo, 0)))
-    ct = jnp.pad(jnp.asarray(c.T), ((0, n_ct - n), (0, m_pad - m)))
-    got_ct = np.asarray(
-        spmm_dia_ct_padded(jnp.asarray(dvals), bt, ct, alpha, beta,
-                           offsets=offsets, tile_m=tile_m, interpret=True)
-    ).T[:m, :n]
-    np.testing.assert_allclose(got_ct, want, rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(got_ct, got_std, rtol=1e-6, atol=1e-6)
+    a = np.zeros((m, m), np.float64)
+    a[coo.rows, coo.cols] = coo.vals
+    want = 1.3 * (a @ b.astype(np.float64)) - 0.4 * c
+    plan = HybridSpmmPlan(split, n, residue_config=CFG, residue_fmt="vpu",
+                          backend="xla")
+    got = np.asarray(plan(b, 1.3, -0.4, c))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
 def test_hybrid_plan_uses_dia_ct_at_skinny_n():
-    """End-to-end: HybridSpmmPlan with the pallas DIA engine (interpret) at
-    N=16 routes through the CT kernel and matches golden."""
+    """End-to-end: HybridSpmmPlan on a banded matrix at N=16 (auto residue
+    format and engine) matches golden."""
     import jax.numpy as jnp
 
     from sextans_tpu.format.csr import CSRMatrix
@@ -308,7 +273,7 @@ def test_hybrid_plan_uses_dia_ct_at_skinny_n():
                     cols[keep].astype(np.int32), vals)
     s = split_structure(coo, n=16)
     assert s.diag_offsets.size > 10
-    plan = HybridSpmmPlan(s, 16, dia_backend="pallas_interpret")
+    plan = HybridSpmmPlan(s, 16)
     b = rng.standard_normal((m, 16)).astype(np.float32)
     c = rng.standard_normal((m, 16)).astype(np.float32)
     got = np.asarray(plan(jnp.asarray(b), 0.85, -2.06, jnp.asarray(c)))

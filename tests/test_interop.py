@@ -27,7 +27,7 @@ def problem():
 
 def _run(a, b, c):
     return np.asarray(
-        sx.spmm(a, b, 0.85, -2.06, c, backend="pallas_interpret")
+        sx.spmm(a, b, 0.85, -2.06, c, backend="auto")
     )
 
 

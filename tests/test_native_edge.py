@@ -23,10 +23,10 @@ def _coo(seed=0, m=300, k=260, nnz=3000):
 
 
 CFGS = [
-    SpmmConfig(tile_m=64, window_k=64, edge_chunk=64, edge_lanes=1),
-    SpmmConfig(tile_m=64, window_k=64, edge_chunk=64, edge_lanes=4),
-    SpmmConfig(tile_m=128, window_k=256, edge_chunk=256, edge_lanes=2),
-    SpmmConfig(tile_m=32, window_k=128, edge_chunk=32, edge_lanes=8),
+    SpmmConfig(tile_m=64, window_k=64, edge_chunk=64),
+    SpmmConfig(tile_m=64, window_k=32, edge_chunk=16),
+    SpmmConfig(tile_m=128, window_k=256, edge_chunk=256),
+    SpmmConfig(tile_m=32, window_k=128, edge_chunk=32),
 ]
 
 
@@ -51,7 +51,7 @@ def test_native_empty_mtiles_and_duplicates():
         cols=np.array([5, 5, 9, 9, 2], np.int32),
         vals=np.array([1.0, 2.0, 3.0, 4.0, 5.0], np.float32),
     )
-    cfg = SpmmConfig(tile_m=32, window_k=32, edge_chunk=32, edge_lanes=2)
+    cfg = SpmmConfig(tile_m=32, window_k=32, edge_chunk=32)
     a = pack_edge(coo, cfg, impl="numpy")
     b = pack_edge(coo, cfg, impl="native")
     np.testing.assert_array_equal(a.meta, b.meta)
@@ -70,7 +70,7 @@ def test_native_large_random_stable():
     vals = rng.standard_normal(nnz).astype(np.float32)
     vals[vals == 0] = 1.0
     coo = COOMatrix((m, k), rows, cols, vals)
-    cfg = SpmmConfig(tile_m=512, window_k=1024, edge_chunk=512, edge_lanes=4)
+    cfg = SpmmConfig(tile_m=512, window_k=1024, edge_chunk=512)
     a = pack_edge(coo, cfg, impl="numpy")
     b = pack_edge(coo, cfg, impl="native")
     np.testing.assert_array_equal(a.meta, b.meta)

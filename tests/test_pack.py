@@ -140,11 +140,10 @@ def test_save_load_roundtrip(tmp_path):
 
 
 def test_save_load_roundtrips_tuned_kernel_knobs(tmp_path):
-    """An autotuned config (tile_n/n_acc/chunk_unroll) must survive
+    """An autotuned config (geometry and precise) must survive
     --save-packed: a loaded plan must not silently fall back to defaults."""
     cfg = SpmmConfig(
-        tile_m=64, window_k=128, block_k=4, group_blocks=32,
-        tile_n=256, n_acc=2, chunk_unroll=1,
+        tile_m=64, window_k=128, block_k=4, group_blocks=32, precise=1,
     )
     coo = COOMatrix.random(90, 110, 700, seed=13)
     p = pack(coo, cfg)
@@ -152,10 +151,10 @@ def test_save_load_roundtrips_tuned_kernel_knobs(tmp_path):
     p.save(f)
     q = PackedSpMatrix.load(f)
     assert q.config == cfg
-    # tile_n=None sentinel round-trips too
-    p2 = pack(coo, cfg.with_(tile_n=None))
+    # the fast path round-trips too
+    p2 = pack(coo, cfg.with_(precise=0))
     p2.save(f)
-    assert PackedSpMatrix.load(f).config.tile_n is None
+    assert PackedSpMatrix.load(f).config.precise == 0
 
 
 def test_interleave_spreads_stripes():
@@ -234,8 +233,7 @@ def test_reorder_cols_correctness_and_roundtrip(tmp_path):
     from sextans_tpu.ops.golden import golden_spmm_exact
     from sextans_tpu.ops.plan import SpmmPlan
 
-    cfg = SpmmConfig(tile_m=32, window_k=64, block_k=8, group_blocks=16,
-                     tile_n=128)
+    cfg = SpmmConfig(tile_m=32, window_k=64, block_k=8, group_blocks=16)
     coo = COOMatrix.random(120, 90, 900, seed=77)
     p = pack(coo, cfg, reorder_cols=True)
     assert p.col_perm is not None and len(p.col_perm) == 90

@@ -93,7 +93,7 @@ def test_correct_result_through_disk_cache(tmp_path):
     fresh = PackCache(root=tmp_path)
     pe = fresh.get_or_pack("t", coo, CFG, "edge")
     assert fresh.disk_hits == 1
-    plan = SpmmPlan(pe, 16, backend="edge_interpret")
+    plan = SpmmPlan(pe, 16, backend="edge")
     b = np.ones((coo.shape[1], 16), np.float32)
     from sextans_tpu.format.csr import CSRMatrix
     from sextans_tpu.ops.golden import golden_spmm
@@ -203,8 +203,7 @@ def test_raw_memmap_cache_roundtrip(tmp_path, monkeypatch):
         "edge": SpmmConfig(tile_m=64, edge_chunk=512),
         "ell": SpmmConfig(tile_m=64, ell_r=4),
     }
-    backends = {"vpu": "xla", "mxu": "mxu_interpret",
-                "edge": "edge_interpret", "ell": "ell"}
+    backends = {"vpu": "xla", "mxu": "mxu", "edge": "edge", "ell": "ell"}
     rng = np.random.default_rng(12)
     b = rng.standard_normal((400, 16)).astype(np.float32)
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, 1.0, 0.0, None)

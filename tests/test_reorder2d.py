@@ -38,17 +38,13 @@ def test_reorder_rows_is_a_permutation():
 
 @pytest.mark.parametrize("fmt,backend,cfg", [
     ("vpu", "xla",
-     SpmmConfig(tile_m=64, window_k=64, block_k=8, group_blocks=16,
-                tile_n=128)),
-    ("vpu", "pallas_interpret",
-     SpmmConfig(tile_m=64, window_k=64, block_k=8, group_blocks=16,
-                tile_n=128)),
-    ("mxu", "mxu_interpret",
-     SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=4,
-                tile_n=128)),
-    ("edge", "edge_interpret",
-     SpmmConfig(tile_m=64, window_k=64, edge_chunk=128, edge_lanes=2,
-                tile_n=128)),
+     SpmmConfig(tile_m=64, window_k=64, block_k=8, group_blocks=16)),
+    ("vpu", "auto",
+     SpmmConfig(tile_m=64, window_k=64, block_k=4, group_blocks=32)),
+    ("mxu", "mxu",
+     SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=4)),
+    ("edge", "edge",
+     SpmmConfig(tile_m=64, window_k=64, edge_chunk=128)),
 ])
 def test_reorder2d_matches_golden(fmt, backend, cfg):
     coo = _powerlaw(seed=5)
@@ -75,8 +71,7 @@ def test_reorder2d_matches_golden(fmt, backend, cfg):
 
 def test_reorder2d_repeat_chain():
     coo = _powerlaw(seed=9)
-    cfg = SpmmConfig(tile_m=64, window_k=64, block_k=8, group_blocks=16,
-                     tile_n=128)
+    cfg = SpmmConfig(tile_m=64, window_k=64, block_k=8, group_blocks=16)
     packed = pack(coo, cfg, reorder_cols=True, reorder_rows_=True)
     plan = SpmmPlan(packed, 16, backend="xla")
     rng = np.random.default_rng(2)

@@ -15,8 +15,7 @@ from sextans_tpu.ops.golden import golden_spmm_exact
 from sextans_tpu.ops.serve import SpmmServer, bucket_up, bucketize_pack
 from sextans_tpu.utils.config import SpmmConfig
 
-CFG = SpmmConfig(tile_m=64, window_k=256, block_k=8, group_blocks=16,
-                 tile_n=128)
+CFG = SpmmConfig(tile_m=64, window_k=256, block_k=8, group_blocks=16)
 
 
 def _coo(m, k, nnz, seed):
@@ -89,10 +88,12 @@ def test_server_correct_and_zero_recompile(fmt, backend):
 
 
 def test_server_pallas_interpret_rejected():
+    # a backend that is not an engine of the format is refused
     with pytest.raises(ValueError):
         SpmmServer(16, config=CFG, fmt="mxu", backend="mxu_interpret")
-    # fmt="ell" is servable since round 5 (XLA gather engine, auto backend)
+    # auto on the CPU test platform: the plain-XLA engine of each format
     assert SpmmServer(16, config=CFG, fmt="ell").backend == "ell"
+    assert SpmmServer(16, config=CFG, fmt="mxu").backend == "mxu"
     with pytest.raises(ValueError):
         SpmmServer(16, config=CFG, fmt="bogus")
 
@@ -113,31 +114,34 @@ def test_server_beta_zero_and_shape_errors():
 
 
 def test_server_edge_format_buckets():
-    """Edge-format packs bucketize on chunk count; two near-size matrices
-    share a bucket signature. (The real edge kernel only runs on TPU —
-    edge_interpret re-traces per shape so the server rejects it; here we
-    construct the server with the TPU backend and assert the host-side
-    bucketing without executing.)"""
-    cfg = SpmmConfig(tile_m=64, window_k=256, edge_chunk=256, edge_lanes=4,
-                     tile_n=128)
-    server = SpmmServer.__new__(SpmmServer)  # skip device-based auto choice
-    server.n = 16
-    server.config = cfg
-    server.fmt = "edge"
-    server.backend = "edge"
-    server.growth = 1.25
-    server.pack_cache = None
-    server.tile_n = 128
-    server._buckets = set()
-    coo = _coo(100, 120, 800, seed=8)
-    from sextans_tpu.ops.serve import bucketize_pack as _bp
-    from sextans_tpu.format.pack_edge import pack_edge
+    """Edge-format packs bucketize on chunk count: two near-size matrices
+    share a bucket, and the second is served correctly with zero
+    recompiles of the edge engine."""
+    from sextans_tpu.ops.spmm_xla import spmm_edge_padded
 
-    sig = server.bucket_signature(_bp(pack_edge(coo, cfg)))
-    sig2 = server.bucket_signature(
-        _bp(pack_edge(_coo(101, 121, 810, seed=9), cfg))
+    cfg = SpmmConfig(tile_m=64, window_k=256, edge_chunk=256)
+    server = SpmmServer(16, config=cfg, fmt="edge")
+    assert server.backend == "edge"
+    coo1 = _coo(100, 120, 800, seed=8)
+    coo2 = _coo(101, 121, 810, seed=9)
+    rng = np.random.default_rng(10)
+    p1 = server.plan(coo1)
+    b1 = rng.standard_normal((120, 16)).astype(np.float32)
+    c1 = rng.standard_normal((100, 16)).astype(np.float32)
+    got1 = p1(b1, 0.85, -2.06, c1)
+    want1 = golden_spmm_exact(CSRMatrix.from_coo(coo1), b1, 0.85, -2.06, c1)
+    assert np.abs(got1 - want1).max() < 1e-4
+    cache_after_first = spmm_edge_padded._cache_size()
+    p2 = server.plan(coo2)
+    assert not p2.bucket_new
+    assert server.bucket_signature(p1.packed) == server.bucket_signature(
+        p2.packed
     )
-    assert sig == sig2
+    b2 = rng.standard_normal((121, 16)).astype(np.float32)
+    got2 = p2(b2, 1.0, 0.0)
+    want2 = golden_spmm_exact(CSRMatrix.from_coo(coo2), b2, 1.0, 0.0, None)
+    assert np.abs(got2 - want2).max() < 1e-4
+    assert spmm_edge_padded._cache_size() == cache_after_first
 
 
 def _coo_fixed_degree(m, k, deg, seed):
@@ -154,11 +158,9 @@ def _coo_fixed_degree(m, k, deg, seed):
 
 
 def test_server_ell_correct_and_zero_recompile():
-    """ELL serving (round 5): the HBM-gather engine is stock XLA, so the
-    scattered classes it wins on are servable on CPU and TPU alike. Two
-    near-size low-degree matrices must land in one bucket and share the
-    compiled kernel."""
-    cfg = SpmmConfig(tile_m=64, ell_r=4, tile_n=128)
+    """ELL serving: two near-size low-degree matrices must land in one
+    bucket and share the compiled engine."""
+    cfg = SpmmConfig(tile_m=64, ell_r=4)
     server = SpmmServer(16, config=cfg, fmt="ell", backend="ell")
     # 180 and 183 both bucket to 185 rows; 280 and 285 both to K=290
     coo1 = _coo_fixed_degree(180, 280, 3, seed=11)
@@ -191,7 +193,7 @@ def test_server_ell_hub_rows_fold_with_bucket_padding():
     padded, and pad folds (0.0 into the last real fold target, keeping
     fold_rows ascending for the engine's sorted scatter-add) must not
     perturb the product."""
-    cfg = SpmmConfig(tile_m=64, ell_r=2, tile_n=128)
+    cfg = SpmmConfig(tile_m=64, ell_r=2)
     m, k = 150, 200
     rng = np.random.default_rng(21)
     rows = [np.repeat(np.arange(m, dtype=np.int32), 2)]
@@ -241,4 +243,4 @@ def test_serveplan_rejects_reordered_pack():
     # _pad_shard_groups must carry the permutation through the padding
     assert bucketed.col_perm is not None
     with pytest.raises(ValueError, match="reordered"):
-        ServePlan(bucketed, 16, backend="xla", tile_n=128)
+        ServePlan(bucketed, 16, backend="xla")

@@ -12,7 +12,7 @@ from sextans_tpu.parallel.partition import pack_sharded
 from sextans_tpu.parallel.sharding import make_mesh, spmm_sharded
 from sextans_tpu.utils.config import SpmmConfig
 
-CFG = SpmmConfig(tile_m=32, window_k=128, block_k=8, group_blocks=16, tile_n=128)
+CFG = SpmmConfig(tile_m=32, window_k=128, block_k=8, group_blocks=16)
 
 
 def _problem(m, k, n, nnz, seed=0):
@@ -132,18 +132,16 @@ def test_sharded_plan_reuse():
         ShardedSpmmPlan(pack_sharded_k(coo, 4, CFG), 16, backend="xla")
 
 
-# ---- round 2: sharded Pallas lowering, repeat loops, K-shard plan ----
+# ---- sharded engine choice, repeat loops, K-shard plan ----
 
 def test_row_sharded_pallas_interpret_under_shard_map():
-    """Exercise the REAL Pallas kernel's sharded lowering (interpret mode)
-    under shard_map on the CPU mesh — the composition that runs on a real
-    v5p pod. XLA-backend-only validation would miss pallas_call/shard_map
-    interactions."""
+    """The engine ``backend="auto"`` picks, under shard_map on the CPU
+    mesh."""
     coo, b, c = _problem(300, 200, 32, 3000, seed=11)
     sharded = pack_sharded(coo, 4, CFG)
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, 0.85, -2.06, c)
     got = np.asarray(
-        spmm_sharded(sharded, b, 0.85, -2.06, c, backend="pallas_interpret")
+        spmm_sharded(sharded, b, 0.85, -2.06, c, backend="auto")
     )
     assert np.max(np.abs(got - want)) < 1e-4
 
@@ -156,7 +154,7 @@ def test_k_sharded_pallas_interpret_under_shard_map():
     sharded = pack_sharded_k(coo, 4, CFG)
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, 0.85, -2.06, c)
     got = np.asarray(
-        spmm_sharded_k(sharded, b, 0.85, -2.06, c, backend="pallas_interpret")
+        spmm_sharded_k(sharded, b, 0.85, -2.06, c, backend="auto")
     )
     assert np.max(np.abs(got - want)) < 1e-4
 
@@ -204,17 +202,16 @@ def test_k_sharded_plan_rejects_row_pack():
 
 
 def test_row_sharded_mxu_format():
-    """MXU dense-slab format under shard_map (interpret) on the CPU mesh."""
+    """Dense-slab format under shard_map on the CPU mesh."""
     from sextans_tpu.parallel.partition import pack_sharded
     from sextans_tpu.parallel.sharding import ShardedSpmmPlan
 
-    cfg = SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=8,
-                     tile_n=128)
+    cfg = SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=8)
     coo, b, c = _problem(300, 200, 32, 3000, seed=21)
     sharded = pack_sharded(coo, 4, cfg, fmt="mxu")
     assert sharded.fmt == "mxu"
-    plan = ShardedSpmmPlan(sharded, 32)  # auto -> mxu_interpret on CPU
-    assert plan.backend == "mxu_interpret"
+    plan = ShardedSpmmPlan(sharded, 32)  # auto -> the slab engine
+    assert plan.backend == "mxu"
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, 0.85, -2.06, c)
     got = np.asarray(plan(b, 0.85, -2.06, c))
     assert np.max(np.abs(got - want)) < 1e-4
@@ -224,8 +221,7 @@ def test_k_sharded_mxu_format():
     from sextans_tpu.parallel.partition import pack_sharded_k
     from sextans_tpu.parallel.sharding import ShardedSpmmPlanK
 
-    cfg = SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=8,
-                     tile_n=128)
+    cfg = SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=8)
     coo, b, c = _problem(200, 500, 32, 3000, seed=22)
     sharded = pack_sharded_k(coo, 4, cfg, fmt="mxu")
     plan = ShardedSpmmPlanK(sharded, 32)
@@ -241,19 +237,19 @@ def test_sharded_format_backend_mismatch():
     coo, b, c = _problem(100, 100, 16, 500, seed=23)
     sharded = pack_sharded(coo, 2, CFG)  # vpu format
     with pytest.raises(ValueError, match="does not match"):
-        ShardedSpmmPlan(sharded, 16, backend="mxu_interpret")
+        ShardedSpmmPlan(sharded, 16, backend="mxu")
 
 
 @pytest.mark.parametrize("n_shards", [2, 8])
 def test_sharded_edge_format_matches_golden(n_shards):
-    """Row-block sharding of the edge-stream format (interpret mode under
-    shard_map — the real kernel's sharded lowering on the CPU mesh)."""
+    """Row-block sharding of the edge format under shard_map on the CPU
+    mesh."""
     from sextans_tpu.parallel.sharding import ShardedSpmmPlan
 
-    cfg = SpmmConfig(tile_m=32, window_k=128, edge_chunk=64, edge_lanes=4)
+    cfg = SpmmConfig(tile_m=32, window_k=128, edge_chunk=64)
     coo, b, c = _problem(300, 200, 128, 3000, seed=40 + n_shards)
     sharded = pack_sharded(coo, n_shards, cfg, fmt="edge")
-    plan = ShardedSpmmPlan(sharded, 128, backend="edge_interpret")
+    plan = ShardedSpmmPlan(sharded, 128, backend="edge")
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, 0.85, -2.06, c)
     got = np.asarray(plan(b, 0.85, -2.06, c))
     assert np.max(np.abs(got - want)) < 1e-4
@@ -361,7 +357,7 @@ def test_k_sharded_edge_format_matches_golden():
     cfg = SpmmConfig(tile_m=32, window_k=128, edge_chunk=64)
     coo, b, c = _problem(256, 300, 128, 3000, seed=51)
     sharded = pack_sharded_k(coo, 4, cfg, fmt="edge")
-    plan = ShardedSpmmPlanK(sharded, 128, backend="edge_interpret")
+    plan = ShardedSpmmPlanK(sharded, 128, backend="edge")
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, 0.85, -2.06, c)
     got = np.asarray(plan(b, 0.85, -2.06, c))
     assert np.max(np.abs(got - want)) < 1e-4
@@ -385,7 +381,7 @@ def _powerlaw(m, k, nnz, seed=0):
 
 
 @pytest.mark.parametrize("fmt,backend", [
-    ("vpu", "xla"), ("mxu", "mxu_interpret"), ("edge", "edge_interpret"),
+    ("vpu", "xla"), ("mxu", "mxu"), ("edge", "edge"),
     ("ell", "ell"),
 ])
 def test_balanced_matches_golden(fmt, backend):

@@ -33,8 +33,8 @@ CASES = [
     ("vpu", SpmmConfig(tile_m=32, window_k=128, block_k=4, group_blocks=32)),
     ("mxu", SpmmConfig(tile_m=128, window_k=256, block_k=8, group_blocks=4)),
     ("mxu", SpmmConfig(tile_m=256, window_k=128, block_k=16, group_blocks=2)),
-    ("edge", SpmmConfig(tile_m=64, window_k=64, edge_chunk=64, edge_lanes=1)),
-    ("edge", SpmmConfig(tile_m=64, window_k=64, edge_chunk=64, edge_lanes=4)),
+    ("edge", SpmmConfig(tile_m=64, window_k=64, edge_chunk=64)),
+    ("edge", SpmmConfig(tile_m=32, window_k=128, edge_chunk=16)),
     ("ell", SpmmConfig(tile_m=32, ell_r=4)),
     ("ell", SpmmConfig(tile_m=32)),  # auto slots-per-row
 ]

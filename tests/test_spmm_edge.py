@@ -1,8 +1,8 @@
-"""Edge-stream backend: pack + kernel (interpret mode) vs the golden oracle.
+"""Edge format: pack + engine vs the golden oracle.
 
 The swsim-analog coverage (SURVEY.md §4) for the third packed format —
-the structure-independent per-nonzero path (format/pack_edge.py +
-ops/spmm_edge_pallas.py), the parity answer to the reference PEG's
+the structure-independent per-nonzero path (format/pack_edge.py + the edge
+engine of ops/spmm_xla.py), the parity answer to the reference PEG's
 arbitrary-column decode (src/sextans.cpp:388-419).
 """
 
@@ -27,7 +27,7 @@ def _run(coo, n, cfg=CFG, alpha=0.85, beta=-2.06, c=None, seed=0, **pk):
     if beta != 0.0 and c is None:
         c = rng.standard_normal((m, n)).astype(np.float32)
     packed = pack_edge(coo, cfg, **pk)
-    plan = SpmmPlan(packed, n, backend="edge_interpret")
+    plan = SpmmPlan(packed, n, backend="edge")
     got = np.asarray(plan(b, alpha, beta, c))
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, alpha, beta, c)
     return got, want
@@ -164,50 +164,49 @@ def test_edge_reorder_cols():
     packed = pack_edge(coo, SpmmConfig(tile_m=128, window_k=128,
                                        edge_chunk=64), reorder_cols=True)
     assert packed.col_perm is not None
-    plan = SpmmPlan(packed, 64, backend="edge_interpret")
+    plan = SpmmPlan(packed, 64, backend="edge")
     got = np.asarray(plan(b, 0.85, -2.06, c))
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, 0.85, -2.06, c)
     assert verify(want, got).passed
 
 
-@pytest.mark.parametrize("lanes", [2, 4, 8])
-def test_edge_lanes_match_golden(lanes):
-    """Run padding to edge_lanes multiples: L independent registers must
-    produce the same answer (short runs, straddling runs, padded runs)."""
-    cfg = SpmmConfig(tile_m=128, window_k=128, edge_chunk=64,
-                     edge_lanes=lanes)
+@pytest.mark.parametrize("edge_chunk", [16, 64, 256])
+def test_edge_chunk_sizes_match_golden(edge_chunk):
+    """Chunk size only changes where jobs are cut: short runs, runs
+    straddling chunks and tail padding give the same answer."""
+    cfg = SpmmConfig(tile_m=128, window_k=128, edge_chunk=edge_chunk)
     coo = COOMatrix.random(400, 500, 6000, seed=21)
     got, want = _run(coo, 96, cfg=cfg)
     res = verify(want, got)
     assert res.passed, res
 
 
-def test_edge_lanes_dense_rows_straddle():
-    """Dense rows straddle several chunks at L=4: forced chunk-end flushes
-    must hit the right row."""
+def test_edge_dense_rows_straddle_chunks():
+    """Dense rows straddle several chunks: every edge still lands in its
+    row."""
     m, k = 64, 1024
     rng = np.random.default_rng(6)
     rows = np.repeat(np.array([1, 2, 63], np.int32), k)
     cols = np.tile(np.arange(k, dtype=np.int32), 3)
     vals = rng.standard_normal(3 * k).astype(np.float32)
     coo = COOMatrix((m, k), rows, cols, vals)
-    cfg = SpmmConfig(tile_m=64, window_k=512, edge_chunk=32, edge_lanes=4)
+    cfg = SpmmConfig(tile_m=64, window_k=512, edge_chunk=32)
     got, want = _run(coo, 64, cfg=cfg)
     assert verify(want, got).passed
 
 
-def test_edge_lanes_pad_accounting():
+def test_edge_pack_accounting():
     coo = COOMatrix.random(300, 400, 3000, seed=23)
-    cfg1 = SpmmConfig(tile_m=128, window_k=128, edge_chunk=64, edge_lanes=1)
-    cfg4 = SpmmConfig(tile_m=128, window_k=128, edge_chunk=64, edge_lanes=4)
-    p1, p4 = pack_edge(coo, cfg1), pack_edge(coo, cfg4)
-    assert p4.stats.slots >= p1.stats.slots  # run padding costs slots
-    assert p4.stats.a_bytes == 8 * p4.n_chunks * 64
+    cfg = SpmmConfig(tile_m=128, window_k=128, edge_chunk=64)
+    p = pack_edge(coo, cfg)
+    assert p.stats.slots == p.n_chunks * 64
+    assert p.stats.pad_blocks == p.stats.slots - 3000
+    assert p.stats.a_bytes == 8 * p.n_chunks * 64
 
 
 def test_masked_edge_kernel_tolerates_nonfinite_b():
-    """edge_masked=True: Inf/NaN in B rows that only padding references
-    must not leak into C (advisor r2: 0*Inf = NaN at pad slots)."""
+    """Inf/NaN in B rows that only padding references must not leak into C
+    (0*Inf = NaN at pad slots): the engine drops pad slots."""
     import jax.numpy as jnp
 
     from sextans_tpu.ops.plan import SpmmPlan
@@ -219,13 +218,12 @@ def test_masked_edge_kernel_tolerates_nonfinite_b():
     vals = rng.standard_normal(300).astype(np.float32)
     vals[vals == 0] = 1.0
     coo = COOMatrix((m, k), rows, cols, vals)
-    cfg = SpmmConfig(tile_m=32, window_k=32, edge_chunk=64, edge_lanes=2,
-                     tile_n=128, edge_masked=True)
+    cfg = SpmmConfig(tile_m=32, window_k=32, edge_chunk=64)
     packed = pack_edge(coo, cfg)
     b = rng.standard_normal((k, n)).astype(np.float32)
     b[0, :] = np.inf  # first row of the first K-window: pad-slot target
     c = rng.standard_normal((m, n)).astype(np.float32)
-    plan = SpmmPlan(packed, n, backend="edge_interpret")
+    plan = SpmmPlan(packed, n, backend="edge")
     got = np.asarray(plan(jnp.asarray(b), 0.85, -2.06, jnp.asarray(c)))
     assert np.isfinite(got).all()
     # A never references col 0, so the Inf row must not affect the result
@@ -239,8 +237,8 @@ def test_masked_edge_kernel_tolerates_nonfinite_b():
 
 
 def test_unmasked_edge_kernel_documented_precondition():
-    """Without the mask the NaN leak is expected (documented finite-B
-    precondition) — this pins the behavior the mask exists to fix."""
+    """A single edge leaves most of its chunk as padding, all pointing at
+    column 0 of the window; an Inf there must not reach C."""
     import jax.numpy as jnp
 
     from sextans_tpu.ops.plan import SpmmPlan
@@ -250,21 +248,22 @@ def test_unmasked_edge_kernel_documented_precondition():
     # single edge at (1, 1): slot padding references col 0
     coo = COOMatrix((m, k), np.array([1], np.int32), np.array([1], np.int32),
                     np.array([2.0], np.float32))
-    cfg = SpmmConfig(tile_m=32, window_k=32, edge_chunk=64, tile_n=128)
+    cfg = SpmmConfig(tile_m=32, window_k=32, edge_chunk=64)
     packed = pack_edge(coo, cfg)
     b = np.ones((k, n), np.float32)
     b[0, :] = np.inf
-    plan = SpmmPlan(packed, n, backend="edge_interpret")
+    plan = SpmmPlan(packed, n, backend="edge")
     got = np.asarray(plan(jnp.asarray(b), 1.0, 0.0, None))
-    assert not np.isfinite(got).all()  # the documented leak
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got[1], np.full(n, 2.0, np.float32))
+    assert not got[np.arange(m) != 1].any()
 
 
-@pytest.mark.parametrize("lanes", [1, 2])
-def test_edge_precise_mode_tightens_error(lanes):
-    """Kahan compensation in the edge kernel: per-lane two-sum over a hub
-    row's long register chain + compensated flush into the accumulator must
-    land within ~2 ulp of the f64 oracle (the same contract the VPU/MXU
-    kernels honor — docs/ACCURACY.md)."""
+@pytest.mark.parametrize("level", [1, 2])
+def test_edge_precise_mode_tightens_error(level):
+    """Precise (float64) accumulation over hub rows' long chains must land
+    within ~2 ulp of the f64 oracle (the same contract the block and slab
+    engines honor — docs/ACCURACY.md)."""
     rng = np.random.default_rng(3)
     m, k, n = 64, 4096, 16
     # 8 hub rows x full-K degree: a 4096-edge serial chain per register
@@ -280,10 +279,10 @@ def test_edge_precise_mode_tightens_error(lanes):
     errs = {}
     for precise in (False, True):
         cfg = SpmmConfig(tile_m=64, window_k=512, edge_chunk=128,
-                         edge_lanes=lanes, precise=precise)
+                         precise=level if precise else 0)
         packed = pack_edge(coo, cfg)
         got = np.asarray(
-            SpmmPlan(packed, n, backend="edge_interpret")(b, 0.85, -2.06, c)
+            SpmmPlan(packed, n, backend="edge")(b, 0.85, -2.06, c)
         )
         errs[precise] = float(np.abs(got - want).max())
     assert errs[True] <= errs[False], errs
@@ -291,8 +290,7 @@ def test_edge_precise_mode_tightens_error(lanes):
 
 
 def test_edge_precise_masked_compose():
-    """precise + masked compose: compensated accumulation with IEEE-clean
-    padding under non-finite B."""
+    """precise composes with IEEE-clean padding under non-finite B."""
     coo = COOMatrix.random(300, 400, 2500, seed=11)
     rng = np.random.default_rng(0)
     m, k = coo.shape
@@ -301,41 +299,33 @@ def test_edge_precise_masked_compose():
     b[0, :] = np.inf  # first row of window 0: pad slots would hit it
     c = rng.standard_normal((m, n)).astype(np.float32)
     cfg = SpmmConfig(tile_m=128, window_k=256, edge_chunk=128,
-                     precise=True, edge_masked=True)
+                     precise=True)
     # keep column 0 out of the real pattern so golden stays finite
     keep = coo.cols != 0
     coo = COOMatrix((m, k), coo.rows[keep], coo.cols[keep], coo.vals[keep])
     packed = pack_edge(coo, cfg)
     got = np.asarray(
-        SpmmPlan(packed, n, backend="edge_interpret")(b, 0.85, -2.06, c)
+        SpmmPlan(packed, n, backend="edge")(b, 0.85, -2.06, c)
     )
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, 0.85, -2.06, c)
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() < 1e-4
 
 
-def test_edge_precise_oversized_config_raises_typed_vmem_error():
-    """The compensated (precise) epilogue keeps ~8 full-tile EFT temporaries
-    live; an oversized precise config must fail the VMEM pre-check with a
-    typed ValueError (autotuner-visible) instead of crashing inside the TPU
-    compiler. Regression: the guard's epilogue term was only wired into the
-    vpu kernel, so 4096x512-tile precise edge configs bypassed it."""
+def test_edge_engine_precise_needs_x64():
+    """Precise accumulates in float64: called without x64 the engine raises
+    a typed error instead of silently accumulating in float32."""
     import jax.numpy as jnp
-    import pytest
 
-    from sextans_tpu.ops.spmm_edge_pallas import spmm_edge_padded
+    from sextans_tpu.ops.spmm_xla import spmm_edge_padded
 
-    tile_m, window_k, tile_n, E = 4096, 4096, 512, 2048
-    vals = jnp.zeros((1, 1, E), jnp.float32)
-    meta = jnp.zeros((1, 1, E), jnp.int32)
-    cm = jnp.zeros((2,), jnp.int32)
-    ck = jnp.zeros((1,), jnp.int32)
-    b = jnp.zeros((window_k, tile_n), jnp.float32)
-    c = jnp.zeros((tile_m, tile_n), jnp.float32)
-    with pytest.raises(ValueError, match="VMEM working set"):
+    vals = jnp.zeros((1, 1, 8), jnp.float32)
+    meta = jnp.ones((1, 1, 8), jnp.int32)
+    b = jnp.zeros((8, 4), jnp.float32)
+    c = jnp.zeros((8, 4), jnp.float32)
+    with pytest.raises(ValueError, match="x64"):
         spmm_edge_padded(
-            vals, meta, cm, ck, b, c,
-            jnp.float32(1.0), jnp.float32(0.0),
-            tile_m=tile_m, window_k=window_k, edge_chunk=E, tile_n=tile_n,
-            precise=True,
+            vals, meta, jnp.zeros((2,), jnp.int32), jnp.zeros((1,), jnp.int32),
+            b, c, jnp.float32(1.0), jnp.float32(0.0),
+            tile_m=8, window_k=8, precise=1,
         )

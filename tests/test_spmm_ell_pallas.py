@@ -1,9 +1,8 @@
-"""ELL Pallas chunk-gather backend (ops/spmm_ell_pallas.py) vs the oracle.
+"""ELL gather engine (ops/spmm_ell_xla.py) through SpmmPlan vs the oracle.
 
-The TPU-side twin of the XLA gather engine: same PackedSpMatrixELL input,
-same hub-split/fold semantics, but the row gathers run as pipelined Pallas
-chunk DMAs (interpret mode here). Covers every n_pad branch (128 panels up
-to the >1024 recursion), pads, hub folds, and the SpmmPlan surfaces.
+Covers N below, at and above 128 (including N not a power of two), odd K,
+hub-row splits and folds, beta=0 without C, the repeat chain, empty rows and
+pad slots under non-finite B.
 """
 
 import numpy as np
@@ -18,7 +17,7 @@ from sextans_tpu.utils.config import SpmmConfig
 from sextans_tpu.utils.verify import verify
 
 CFG = SpmmConfig(tile_m=64)
-BACKEND = "ell_pallas_interpret"
+BACKEND = "ell"
 
 
 def _run(coo, n, cfg=CFG, alpha=0.85, beta=-2.06, c=None, seed=0, **pk):
@@ -44,7 +43,7 @@ def test_ell_pallas_matches_golden(n):
 
 
 def test_ell_pallas_k_not_chunk_aligned():
-    # n_pad=128 -> 8 B rows per chunk; k=515 forces the internal K pad
+    # an odd K: B is gathered whole, with no K padding or windowing
     coo = COOMatrix.random(300, 515, 2500, seed=2)
     got, want, _ = _run(coo, 64)
     assert verify(want, got).passed
@@ -99,8 +98,8 @@ def test_ell_pallas_empty_rows_exact_zero():
 
 
 def test_ell_pallas_nonfinite_b_pad_immunity():
-    # pad slots fetch a real chunk (chunk 0) but are masked by sublane
-    # target -1 — non-finite values anywhere in B must not leak into pads
+    # pad slots (value 0, column 0) load nothing — non-finite values in B
+    # must not leak into rows through their pads
     coo = COOMatrix.random(64, 96, 200, seed=6)
     rng = np.random.default_rng(7)
     b = rng.standard_normal((96, 16)).astype(np.float32)
@@ -122,7 +121,7 @@ def test_ell_pallas_nonfinite_b_pad_immunity():
 
 
 def test_ell_pallas_wide_n_panel_loop():
-    # n > 1024 exercises the per-1024-panel recursion
+    # n > 1024: nine 128-column tiles, the last one partial
     coo = COOMatrix.random(96, 128, 600, seed=8)
     got, want, _ = _run(coo, 1100, cfg=SpmmConfig(tile_m=32), beta=0.0)
     assert got.shape == (96, 1100)
@@ -133,20 +132,46 @@ def test_ell_pallas_chooser_engine_models():
     from sextans_tpu.utils.autotune import choose_config_ell
 
     coo = COOMatrix.random(4096, 4096, 16384, seed=9)
-    res_p = choose_config_ell(coo, n=64, top=2, engine="pallas")
-    res_x = choose_config_ell(coo, n=64, top=2, engine="xla")
-    for res in (res_p, res_x):
-        assert res and all(t.fmt == "ell" for t in res)
-        assert all(t.config.ell_r is not None for t in res)
-    # pallas model: cost is DMA-issue bound, so predicted cost must grow
-    # with slot count — a degree-1 matrix at the same m should cost less
+    res = choose_config_ell(coo, n=64, top=2)
+    assert res and all(t.fmt == "ell" for t in res)
+    assert all(t.config.ell_r is not None for t in res)
+    # the byte model grows with slot count: a degree-1 matrix at the same
+    # m must cost less
     rows = np.arange(4096, dtype=np.int64)
-    cols1 = np.arange(4096, dtype=np.int64) % 4096
-    thin = COOMatrix(
-        (4096, 4096), rows, cols1, np.ones(4096, np.float32)
-    )
-    res_thin = choose_config_ell(thin, n=64, top=1, engine="pallas")
-    assert res_thin[0].predicted_cost < res_p[0].predicted_cost
-    # end-to-end on the pallas-modeled config
-    got, want, _ = _run(coo, 64, cfg=res_p[0].config, beta=0.0)
+    thin = COOMatrix((4096, 4096), rows, rows, np.ones(4096, np.float32))
+    res_thin = choose_config_ell(thin, n=64, top=1)
+    assert res_thin[0].predicted_cost < res[0].predicted_cost
+    # end-to-end on the chosen config
+    got, want, _ = _run(coo, 64, cfg=res[0].config, beta=0.0)
     assert verify(want, got).passed
+
+
+@pytest.mark.parametrize("n,with_c", [(37, True), (37, False), (128, False)])
+def test_ell_engine_direct_with_and_without_c(n, with_c):
+    """The engine called directly on padded operands, hub folds included,
+    with and without the C stream, against the oracle."""
+    import jax.numpy as jnp
+
+    from sextans_tpu.ops.spmm_ell_xla import spmm_ell_padded
+
+    rng = np.random.default_rng(10)
+    m, k = 150, 170
+    rows = np.concatenate([np.full(120, 3), rng.integers(0, m, 900)])
+    cols = rng.integers(0, k, rows.size)
+    lin = np.unique(rows.astype(np.int64) * k + cols)
+    coo = COOMatrix((m, k), lin // k, lin % k,
+                    rng.standard_normal(lin.size).astype(np.float32))
+    p = pack_ell(coo, SpmmConfig(tile_m=32), slots_per_row=4)
+    assert p.n_virt > 0
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    c = np.zeros((p.m_padded, n), np.float32)
+    c[:m] = rng.standard_normal((m, n))
+    got = np.asarray(spmm_ell_padded(
+        jnp.asarray(p.vals), jnp.asarray(p.cols), jnp.asarray(p.fold_rows),
+        jnp.asarray(b), jnp.asarray(c), jnp.float32(0.85),
+        jnp.float32(-2.06), m_base=p.m_base, with_c=with_c))[:m]
+    want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, 0.85,
+                             -2.06 if with_c else 0.0,
+                             c[:m] if with_c else None)
+    assert verify(want, got).passed
+    assert np.abs(got - want).max() < 1e-4

@@ -1,7 +1,7 @@
-"""MXU dense-slab backend: pack + kernel (interpret mode) vs the golden oracle.
+"""Dense-slab format: pack + engine vs the golden oracle.
 
 The swsim-analog coverage (SURVEY.md §4) for the second packed format:
-format/pack_mxu.py + ops/spmm_mxu_pallas.py.
+format/pack_mxu.py + the slab engine of ops/spmm_xla.py.
 """
 
 import numpy as np
@@ -23,7 +23,7 @@ def _run(coo, n, cfg, alpha=0.85, beta=-2.06, c=None, seed=0, **plan_kw):
     if beta != 0.0 and c is None:
         c = rng.standard_normal((m, n)).astype(np.float32)
     packed = pack_mxu(coo, cfg)
-    plan = SpmmPlan(packed, n, backend="mxu_interpret", **plan_kw)
+    plan = SpmmPlan(packed, n, backend="mxu", **plan_kw)
     got = np.asarray(plan(b, alpha, beta, c))
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, alpha, beta, c)
     return got, want
@@ -90,7 +90,7 @@ def test_mxu_backend_format_mismatch_raises():
         SpmmPlan(packed_vpu, 16, backend="mxu")
     packed_mxu = pack_mxu(coo, SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=8))
     with pytest.raises(ValueError, match="backend"):
-        SpmmPlan(packed_mxu, 16, backend="pallas")
+        SpmmPlan(packed_mxu, 16, backend="xla")
 
 
 def test_mxu_duplicate_coordinates_sum():
@@ -109,7 +109,7 @@ def test_mxu_repeat_chain_matches_single():
     b = rng.standard_normal((200, 32)).astype(np.float32)
     c = rng.standard_normal((200, 32)).astype(np.float32)
     packed = pack_mxu(coo, CFG)
-    plan = SpmmPlan(packed, 32, backend="mxu_interpret")
+    plan = SpmmPlan(packed, 32, backend="mxu")
     one = np.asarray(plan(b, 0.5, 0.25, c))
     two = np.asarray(plan(b, 0.5, 0.25, one))
     chained = np.asarray(plan.repeat(b, 0.5, 0.25, c, times=2))
@@ -127,8 +127,9 @@ def test_mxu_pack_stats():
 
 
 def test_precise_mode_tightens_error_both_kernels():
-    """Kahan compensated accumulation must land within ~2 ulp of the f64
-    oracle on a long-accumulation workload (docs/ACCURACY.md)."""
+    """Precise (float64) accumulation must land within ~2 ulp of the f64
+    oracle on a long-accumulation workload (docs/ACCURACY.md), for the
+    block and the slab engines."""
     from sextans_tpu.format.pack import pack
 
     rng = np.random.default_rng(0)
@@ -142,7 +143,7 @@ def test_precise_mode_tightens_error_both_kernels():
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, 0.85, -2.06, c)
     ulp = float(np.spacing(np.float32(np.abs(want).max())))
 
-    for fmt, be in (("vpu", "pallas_interpret"), ("mxu", "mxu_interpret")):
+    for fmt, be in (("vpu", "xla"), ("mxu", "mxu")):
         errs = {}
         for precise in (False, True):
             cfg = SpmmConfig(tile_m=128, window_k=512, block_k=8,
@@ -154,28 +155,32 @@ def test_precise_mode_tightens_error_both_kernels():
         assert errs[True] <= 2.5 * ulp, (fmt, errs, ulp)
 
 
-def test_vmem_guard_rejects_oversized_config():
-    """Oversized tiles must fail with a typed error, not an opaque TPU
-    compiler crash (round-1 bk=16 candidate failures)."""
-    from sextans_tpu.ops.spmm_mxu_pallas import spmm_mxu_padded
+def test_slab_engine_chunked_scan_matches_one_chunk(monkeypatch):
+    """Many small block chunks (the lax.scan path) give the one-chunk
+    result: the chunking bounds memory, never changes the sum's terms."""
     import jax.numpy as jnp
 
-    # Config over the measured double-buffered scoped-VMEM cap (round-3
-    # bisect, benchmarks/scratch/vmem_bisect.py: acc + 2*(B + C + vals)
-    # vs the 100 MiB limit — this one models 112 MiB).
-    coo = COOMatrix.random(256, 256, 500, seed=1)
-    cfg = SpmmConfig(tile_m=8192, window_k=8192, block_k=128, group_blocks=8)
+    from sextans_tpu.ops import spmm_xla
+
+    coo = COOMatrix.random(300, 260, 2500, seed=12)
+    cfg = SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=4)
     p = pack_mxu(coo, cfg)
-    with pytest.raises(ValueError, match="VMEM"):
-        spmm_mxu_padded(
-            jnp.asarray(p.vals), jnp.asarray(p.qm), jnp.asarray(p.bcol),
-            jnp.asarray(p.group_mtile), jnp.asarray(p.group_kwin),
-            jnp.zeros((8192, 512), jnp.float32),
-            jnp.zeros((8192, 512), jnp.float32),
-            jnp.float32(1.0), jnp.float32(0.0),
-            tile_m=8192, window_k=8192, block_k=128, group_blocks=8,
-            tile_n=512,
-        )
+    rng = np.random.default_rng(13)
+    b = jnp.asarray(rng.standard_normal((p.k_padded, 24)).astype(np.float32))
+    c = jnp.asarray(rng.standard_normal((p.m_padded, 24)).astype(np.float32))
+    args = (jnp.asarray(p.vals), jnp.asarray(p.qm), jnp.asarray(p.bcol),
+            jnp.asarray(p.group_mtile), jnp.asarray(p.group_kwin), b, c,
+            jnp.float32(0.85), jnp.float32(-2.06))
+    kw = dict(tile_m=128, window_k=128, block_k=8, group_blocks=4)
+    one = np.asarray(spmm_xla.spmm_slab_padded.__wrapped__(*args, **kw))
+    monkeypatch.setattr(spmm_xla, "CHUNK_BYTES", 4 * 24 * (8 + 4 * 128) * 7)
+    many = np.asarray(spmm_xla.spmm_slab_padded.__wrapped__(*args, **kw))
+    np.testing.assert_allclose(many, one, rtol=1e-6, atol=1e-5)
+    want = golden_spmm_exact(
+        CSRMatrix.from_coo(coo), np.asarray(b)[:260], 0.85, -2.06,
+        np.asarray(c)[:300],
+    )
+    assert verify(want, many[:300]).passed
 
 
 def test_native_mxu_pack_bit_identical():
@@ -213,7 +218,7 @@ def test_mxu_save_load_roundtrip(tmp_path):
     from sextans_tpu.format.pack_mxu import PackedSpMatrixMXU
 
     coo = COOMatrix.random(500, 700, 4000, seed=1)
-    cfg = CFG.with_(tile_n=256, precise=True)
+    cfg = CFG.with_(precise=True)
     p = pack_mxu(coo, cfg)
     f = tmp_path / "packed_mxu.npz"
     p.save(f)

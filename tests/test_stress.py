@@ -31,9 +31,7 @@ def test_random_configs_and_shapes(trial):
         window_k=window_k,
         block_k=bk,
         group_blocks=group_blocks,
-        tile_n=128,
         interleave=bool(rng.integers(0, 2)),
-        n_acc=int(rng.choice([1, 2])),
     )
 
     b = rng.standard_normal((k, n)).astype(np.float32)
@@ -42,7 +40,7 @@ def test_random_configs_and_shapes(trial):
     beta = float(rng.normal())
 
     want = golden_spmm_exact(CSRMatrix.from_coo(coo), b, alpha, beta, c)
-    for backend in ("xla", "pallas_interpret"):
+    for backend in ("xla", "auto"):
         got = np.asarray(spmm(coo, b, alpha, beta, c, backend=backend, config=cfg))
         err = np.max(np.abs(got - want))
         scale = max(1.0, np.max(np.abs(want)))
